@@ -1,0 +1,587 @@
+// One bounce of the mega2 path tracer, per thread.
+//
+// Port of `bounce_core` in raytracinginoneweekendincuda_tpu/ops/mega2.py
+// (the body of the persistent Pallas kernel `_make_kernel`): closest hit in
+// key space over spheres, loose quads and axis-aligned box slabs; constant
+// media; winner attributes; checker / Perlin-marble / image textures;
+// emission; the five materials' scatter.  The render kernel (K1,
+// mega2_render.cu) runs it per sample; the winner-tape trace kernel will
+// reuse it.
+//
+// Arithmetic follows the plain PyTorch version (ops/mega2.py) op for op, in
+// the same association order, and is compiled with --fmad=false: PyTorch's
+// elementwise ops never contract a*b+c, so neither may this.  f32 constants
+// are hex literals of numpy's float32 rounding of the reference's values.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace mega2 {
+
+// Table layouts (row-major; see ops/mega2.py for the column notes).
+constexpr int SPH_COLS = 16;
+constexpr int QUAD_COLS = 16;
+constexpr int ATTR_COLS = 40;
+constexpr int MED_COLS = 22;
+
+constexpr uint32_t CAMERA_STREAM = 0x0CA30000u;
+constexpr uint32_t SCATTER_STREAM = 0x5CA70000u;
+constexpr uint32_t MEDIUM_STREAM = 0x3ED00000u;
+
+constexpr float BIG = 0x1.93e594p+99f;        // 1e30
+constexpr float HALF_BIG = 0x1.93e594p+98f;   // 5e29
+constexpr float EPS8 = 0x1.5798eep-27f;       // 1e-8
+constexpr float EPS4 = 0x1.a36e2ep-14f;       // 1e-4
+constexpr float INV24 = 0x1p-24f;
+constexpr float TWO_PI = 0x1.921fb6p+2f;
+constexpr float HALF_PI = 0x1.921fb6p+0f;
+constexpr float PI_F = 0x1.921fb6p+1f;
+constexpr float INV_2PI = 0x1.45f306p-3f;     // 0.5 / pi
+constexpr float INV_PI = 0x1.45f306p-2f;      // 1 / pi
+constexpr float INV255 = 0x1.010102p-8f;      // 1 / 255
+constexpr float ONE_THIRD = 0x1.555556p-2f;
+
+constexpr float MAT_LAMBERTIAN = 0.0f;
+constexpr float MAT_METAL = 1.0f;
+constexpr float MAT_DIELECTRIC = 2.0f;
+constexpr float MAT_DIFFUSE_LIGHT = 3.0f;
+constexpr float MAT_ISOTROPIC = 4.0f;
+constexpr float TEX_CHECKER = 1.0f;
+constexpr float TEX_IMAGE = 2.0f;
+constexpr float TEX_NOISE = 3.0f;
+constexpr int MED_BOX = 1;
+
+// Everything one frame's kernel reads.  Mirrored field for field by the
+// ctypes Structure in ops/mega2.py.
+struct Params {
+  const float* sph;       // [s_pad, 16]
+  const float* quad;      // [q_pad + b_pad, 16]
+  const float* attr;      // [np_rows, 40]
+  const float* med;       // [max(n_media,1), 22], col 14 = radius^2
+  const int* perm;        // [8 * n_noise, 256]
+  const float* vec;       // [24 * n_noise, 256]
+  const int* texels;      // [rows, tex_cols] packed (r<<16)|(g<<8)|b
+  const int* img_dims;    // [n_images, 3]: iw, ih, texel row offset
+  float cam[21];          // origin, lower_left, horizontal, vertical, u, v,
+                          // lens_radius, time0, time1
+  float bg[3];
+  float t_min;
+  int s_pad, nl_pad, q_pad, b_pad, np_rows;
+  int n_media, n_noise, n_images, tex_cols;
+  int width, height, spp, max_bounces;
+  uint32_t seed;
+};
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, tm;
+};
+
+// ---- small helpers -------------------------------------------------------
+
+// NaN-propagating min / max, as torch.minimum / torch.maximum.
+__device__ __forceinline__ float fmin_p(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+__device__ __forceinline__ float fmax_p(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+__device__ __forceinline__ float clamp_p(float x, float lo, float hi) {
+  return fmin_p(fmax_p(x, lo), hi);
+}
+
+__device__ __forceinline__ void pcg4d(uint32_t& v0, uint32_t& v1,
+                                      uint32_t& v2, uint32_t& v3) {
+  v0 = v0 * 1664525u + 1013904223u;
+  v1 = v1 * 1664525u + 1013904223u;
+  v2 = v2 * 1664525u + 1013904223u;
+  v3 = v3 * 1664525u + 1013904223u;
+  v0 = v0 + v1 * v3;
+  v1 = v1 + v2 * v0;
+  v2 = v2 + v0 * v1;
+  v3 = v3 + v1 * v2;
+  v0 = v0 ^ (v0 >> 16);
+  v1 = v1 ^ (v1 >> 16);
+  v2 = v2 ^ (v2 >> 16);
+  v3 = v3 ^ (v3 >> 16);
+  v0 = v0 + v1 * v3;
+  v1 = v1 + v2 * v0;
+  v2 = v2 + v0 * v1;
+  v3 = v3 + v1 * v2;
+}
+
+__device__ __forceinline__ float unit(uint32_t w) {
+  return (float)(w >> 8) * INV24;
+}
+
+// ---- raygen (ops/raygen.py) ----------------------------------------------
+
+__device__ __forceinline__ Ray raygen(const Params& p, uint32_t pix_ctr,
+                                      uint32_t samp, float i_f, float j_f) {
+  const float* c = p.cam;
+  uint32_t w0 = pix_ctr, w1 = samp, w2 = CAMERA_STREAM, w3 = 0u;
+  pcg4d(w0, w1, w2, w3);
+  float ju = unit(w0), jv = unit(w1), l1 = unit(w2), l2 = unit(w3);
+  uint32_t t0 = pix_ctr, t1 = samp, t2 = CAMERA_STREAM + 1u, t3 = 0u;
+  pcg4d(t0, t1, t2, t3);
+  float tu = unit(t0);
+  float s = (i_f + ju) / (float)p.width;
+  float t = (j_f + jv) / (float)p.height;
+  float rd_r = sqrtf(l1);
+  float phi = TWO_PI * l2;
+  float rd0 = c[18] * (rd_r * cosf(phi));
+  float rd1 = c[18] * (rd_r * sinf(phi));
+  float offx = c[12] * rd0 + c[15] * rd1;
+  float offy = c[13] * rd0 + c[16] * rd1;
+  float offz = c[14] * rd0 + c[17] * rd1;
+  Ray r;
+  r.ox = c[0] + offx;
+  r.oy = c[1] + offy;
+  r.oz = c[2] + offz;
+  r.dx = c[3] + s * c[6] + t * c[9] - c[0] - offx;
+  r.dy = c[4] + s * c[7] + t * c[10] - c[1] - offy;
+  r.dz = c[5] + s * c[8] + t * c[11] - c[2] - offz;
+  r.tm = c[19] + tu * (c[20] - c[19]);
+  return r;
+}
+
+// ---- textures --------------------------------------------------------------
+
+__device__ __forceinline__ float perlin_noise(const Params& p, int table,
+                                              float qx, float qy, float qz) {
+  const int* px = p.perm + (8 * table + 0) * 256;
+  const int* py = p.perm + (8 * table + 2) * 256;
+  const int* pz = p.perm + (8 * table + 4) * 256;
+  const float* vx = p.vec + (24 * table + 0) * 256;
+  const float* vy = p.vec + (24 * table + 8) * 256;
+  const float* vz = p.vec + (24 * table + 16) * 256;
+  float fx = floorf(qx), fy = floorf(qy), fz = floorf(qz);
+  float ux = qx - fx, uy = qy - fy, uz = qz - fz;
+  int i = (int)fx, j = (int)fy, k = (int)fz;
+  float sx = ux * ux * (3.0f - 2.0f * ux);
+  float sy = uy * uy * (3.0f - 2.0f * uy);
+  float sz = uz * uz * (3.0f - 2.0f * uz);
+  int pa[2] = {px[i & 255], px[(i + 1) & 255]};
+  int pb[2] = {py[j & 255], py[(j + 1) & 255]};
+  int pc[2] = {pz[k & 255], pz[(k + 1) & 255]};
+  float accum = 0.0f;
+#pragma unroll
+  for (int di = 0; di < 2; ++di) {
+    float wu = di ? sx : (1.0f - sx);
+#pragma unroll
+    for (int dj = 0; dj < 2; ++dj) {
+      float wv = dj ? sy : (1.0f - sy);
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        float ww = dk ? sz : (1.0f - sz);
+        int h = pa[di] ^ pb[dj] ^ pc[dk];
+        float dot = vx[h] * (ux - (float)di) + vy[h] * (uy - (float)dj)
+                    + vz[h] * (uz - (float)dk);
+        accum = accum + wu * wv * ww * dot;
+      }
+    }
+  }
+  return accum;
+}
+
+__device__ __forceinline__ float perlin_turb(const Params& p, int table,
+                                             float qx, float qy, float qz) {
+  float accum = 0.0f;
+  float weight = 1.0f;
+  for (int o = 0; o < 7; ++o) {
+    accum = accum + weight * perlin_noise(p, table, qx, qy, qz);
+    weight = weight * 0.5f;
+    qx = qx * 2.0f;
+    qy = qy * 2.0f;
+    qz = qz * 2.0f;
+  }
+  return fabsf(accum);
+}
+
+// Minimax atan2 / acos, the reference kernel's polynomials (not libm).
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  float ax = fabsf(x), ay = fabsf(y);
+  bool swap = ay > ax;
+  float num = swap ? ax : ay;
+  float den = swap ? ay : ax;
+  float r = num / (den > 0.0f ? den : 1.0f);
+  float z2 = r * r;
+  float q = -0x1.80148ep-7f;
+  q = q * z2 + 0x1.af5604p-5f;
+  q = q * z2 + -0x1.dce8b6p-4f;
+  q = q * z2 + 0x1.8c6084p-3f;
+  q = q * z2 + -0x1.549b4p-2f;
+  q = q * z2 + 0x1.fffd04p-1f;
+  float a = r * q;
+  a = swap ? HALF_PI - a : a;
+  a = (x < 0.0f) ? PI_F - a : a;
+  a = (y < 0.0f) ? -a : a;
+  return ((ax + ay) == 0.0f) ? 0.0f : a;
+}
+
+__device__ __forceinline__ float acos_poly(float x) {
+  float s = sqrtf(fmax_p(1.0f - x * x, 0.0f));
+  return atan2_poly(s, x);
+}
+
+// ---- one bounce ------------------------------------------------------------
+
+// Advances the path by one bounce: finds the closest hit, adds background
+// (miss) or emission to `acc`, scatters.  Returns whether the path goes on;
+// `win` receives the winner row (-1 miss, np_rows + m for medium m).
+__device__ __forceinline__ bool bounce(const Params& p, uint32_t pix_ctr,
+                                       uint32_t samp, uint32_t bnc, Ray& r,
+                                       float thr[3], float acc[3], int& win) {
+  const float ox = r.ox, oy = r.oy, oz = r.oz;
+  const float dx = r.dx, dy = r.dy, dz = r.dz, tm = r.tm;
+  const float t_min = p.t_min;
+  const float a = dx * dx + dy * dy + dz * dz;
+  const float inv_a = 1.0f / a;
+  const float akey = t_min * a;
+
+  // spheres, in key space (key = t * a; a > 0 is per ray, so key order is
+  // t order); strict < keeps the lowest row on ties
+  float best = BIG;
+  win = -1;
+  for (int k = 0; k < p.s_pad; ++k) {
+    const float* s = p.sph + k * SPH_COLS;
+    if (!(s[9] > 0.5f)) continue;           // explicit active-row mask
+    float frac = (tm - s[6]) * s[7];
+    float cx = s[0] + frac * s[3];
+    float cy = s[1] + frac * s[4];
+    float cz = s[2] + frac * s[5];
+    float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+    float b = ocx * dx + ocy * dy + ocz * dz;
+    float cc = ocx * ocx + ocy * ocy + ocz * ocz - s[10];
+    float disc = b * b - a * cc;
+    if (!(disc > 0.0f)) continue;
+    float sq = sqrtf(disc);
+    float k1 = -b - sq;
+    float key = (k1 > akey) ? k1 : (-b + sq);
+    if (key > akey && key < best) {
+      best = key;
+      win = k;
+    }
+  }
+  best = (best < HALF_BIG) ? best * inv_a : BIG;
+
+  // loose quads; spheres win ties
+  for (int k = 0; k < p.nl_pad; ++k) {
+    const float* q = p.quad + k * QUAD_COLS;
+    if (!(q[12] > 0.5f)) continue;
+    float denom = dx * q[0] + dy * q[1] + dz * q[2];
+    if (!(fabsf(denom) >= EPS8)) continue;
+    float t = (q[3] - (ox * q[0] + oy * q[1] + oz * q[2])) / denom;
+    if (!(t >= t_min) || !(t < best)) continue;
+    float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
+    float alpha = px * q[4] + py * q[5] + pz * q[6] - q[7];
+    float beta = px * q[8] + py * q[9] + pz * q[10] - q[11];
+    if (alpha >= 0.0f && alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f) {
+      best = t;
+      win = p.s_pad + k;
+    }
+  }
+
+  // axis-aligned box slabs; the winner is the hit face's quad row
+  const float o3[3] = {ox, oy, oz};
+  const float d3[3] = {dx, dy, dz};
+  for (int g = 0; g < p.b_pad; ++g) {
+    const float* q = p.quad + (p.q_pad + g) * QUAD_COLS;
+    if (!(q[7] > 0.5f)) continue;
+    float nr[3], fr[3];
+    bool side[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      float o_a = o3[ax], d_a = d3[ax];
+      bool d_ok = fabsf(d_a) >= EPS8;
+      float ds = d_ok ? d_a : 1.0f;
+      float t1 = (q[ax] - o_a) / ds;
+      float t2 = (q[3 + ax] - o_a) / ds;
+      bool inside = (o_a >= q[ax]) && (o_a <= q[3 + ax]);
+      nr[ax] = d_ok ? fmin_p(t1, t2) : (inside ? -BIG : BIG);
+      fr[ax] = d_ok ? fmax_p(t1, t2) : (inside ? BIG : -BIG);
+      side[ax] = d_a > 0.0f;
+    }
+    float te = fmax_p(fmax_p(nr[0], nr[1]), nr[2]);
+    float tx = fmin_p(fmin_p(fr[0], fr[1]), fr[2]);
+    bool use_enter = te >= t_min;
+    float tb = use_enter ? te : tx;
+    if (!(te <= tx) || !(tb >= t_min) || !(tb < best)) continue;
+    // face offsets (min face, max face) per axis; first matching axis wins
+    const int off_min[3] = {3, 5, 2};
+    const int off_max[3] = {1, 4, 0};
+    int off = 0;
+#pragma unroll
+    for (int ax = 2; ax >= 0; --ax) {
+      if (use_enter ? (nr[ax] == te) : (fr[ax] == tx)) {
+        off = (side[ax] == use_enter) ? off_min[ax] : off_max[ax];
+      }
+    }
+    best = tb;
+    win = p.s_pad + (int)q[6] + off;
+  }
+
+  // constant media (later media after earlier ones, strict <)
+  bool is_med = false;
+  float alb[3] = {0.0f, 0.0f, 0.0f};
+  const float ray_len = sqrtf(a);
+  for (int m = 0; m < p.n_media; ++m) {
+    const float* md = p.med + m * MED_COLS;
+    uint32_t w0 = pix_ctr, w1 = samp, w2 = MEDIUM_STREAM | bnc,
+             w3 = (uint32_t)m;
+    pcg4d(w0, w1, w2, w3);
+    float u_m = unit(w0) + INV24;           // (0, 1]
+    float t0, t1;
+    bool valid;
+    if ((int)md[0] == MED_BOX) {
+      float c2 = md[11], s2 = md[12];
+      float pox = ox - md[16], poy = oy - md[17], poz = oz - md[18];
+      float o1 = c2 * pox - s2 * poz;
+      float o2 = poy;
+      float o3b = s2 * pox + c2 * poz;
+      float e1 = c2 * dx - s2 * dz;
+      float e2 = dy;
+      float e3 = s2 * dx + c2 * dz;
+      float iv1 = 1.0f / e1, iv2 = 1.0f / e2, iv3 = 1.0f / e3;
+      float ta1 = (md[5] - o1) * iv1, tb1 = (md[8] - o1) * iv1;
+      float ta2 = (md[6] - o2) * iv2, tb2 = (md[9] - o2) * iv2;
+      float ta3 = (md[7] - o3b) * iv3, tb3 = (md[10] - o3b) * iv3;
+      t0 = fmax_p(fmax_p(fmin_p(ta1, tb1), fmin_p(ta2, tb2)),
+                  fmin_p(ta3, tb3));
+      t1 = fmin_p(fmin_p(fmax_p(ta1, tb1), fmax_p(ta2, tb2)),
+                  fmax_p(ta3, tb3));
+      valid = t1 > t0;
+    } else {
+      float ocx = ox - md[1], ocy = oy - md[2], ocz = oz - md[3];
+      float b = ocx * dx + ocy * dy + ocz * dz;
+      float cc = ocx * ocx + ocy * ocy + ocz * ocz - md[14];
+      float disc = b * b - a * cc;
+      float sq = sqrtf(fmax_p(disc, 0.0f));
+      t0 = (-b - sq) * inv_a;
+      t1 = (-b + sq) * inv_a;
+      valid = disc > 0.0f;
+    }
+    valid = valid && (t1 > t0 + EPS4);
+    float t0c = fmax_p(fmax_p(t0, t_min), 0.0f);
+    valid = valid && (t0c < t1);
+    float dist_in = (t1 - t0c) * ray_len;
+    float hit_d = md[13] * logf(u_m);
+    valid = valid && (hit_d <= dist_in);
+    float t_m = t0c + hit_d / ray_len;
+    if (valid && t_m < best) {
+      best = t_m;
+      is_med = true;
+      win = p.np_rows + m;
+      alb[0] = md[19];
+      alb[1] = md[20];
+      alb[2] = md[21];
+    }
+  }
+
+  if (!(best < HALF_BIG)) {                 // miss -> background, path ends
+    acc[0] = acc[0] + thr[0] * p.bg[0];
+    acc[1] = acc[1] + thr[1] * p.bg[1];
+    acc[2] = acc[2] + thr[2] * p.bg[2];
+    return false;
+  }
+
+  // hit record (SetFaceNormal semantics)
+  const float px = ox + best * dx, py = oy + best * dy, pz = oz + best * dz;
+  float nx, ny, nz, tex[3], kind, fuzz = 0.0f, ior = 0.0f;
+  bool front;
+  if (is_med) {
+    nx = 1.0f;
+    ny = 0.0f;
+    nz = 0.0f;
+    front = true;
+    kind = MAT_ISOTROPIC;
+    tex[0] = alb[0];
+    tex[1] = alb[1];
+    tex[2] = alb[2];
+  } else {
+    const float* aw = p.attr + win * ATTR_COLS;
+    float frac_w = (tm - aw[6]) * aw[7];
+    float wcx = aw[0] + frac_w * aw[3];
+    float wcy = aw[1] + frac_w * aw[4];
+    float wcz = aw[2] + frac_w * aw[5];
+    float wrad = aw[8];
+    bool is_quad = aw[9] > 0.5f;
+    float inv_rad = 1.0f / (wrad != 0.0f ? wrad : 1.0f);
+    float nsx = (px - wcx) * inv_rad;
+    float nsy = (py - wcy) * inv_rad;
+    float nsz = (pz - wcz) * inv_rad;
+    float n_x = is_quad ? wcx : nsx;
+    float n_y = is_quad ? wcy : nsy;
+    float n_z = is_quad ? wcz : nsz;
+    float d_dot_n = dx * n_x + dy * n_y + dz * n_z;
+    front = d_dot_n < 0.0f;
+    float flip = front ? 1.0f : -1.0f;
+    nx = n_x * flip;
+    ny = n_y * flip;
+    nz = n_z * flip;
+    kind = aw[10];
+    fuzz = aw[11];
+    ior = aw[12];
+
+    // texture value (Texture.h:48-164)
+    float tex_kind = aw[13];
+    tex[0] = aw[14];
+    tex[1] = aw[15];
+    tex[2] = aw[16];
+    if (tex_kind == TEX_CHECKER) {
+      float inv_s = aw[20];
+      int cx = (int)floorf(inv_s * px);
+      int cy = (int)floorf(inv_s * py);
+      int cz = (int)floorf(inv_s * pz);
+      if (((cx + cy + cz) & 1) != 0) {
+        tex[0] = aw[17];
+        tex[1] = aw[18];
+        tex[2] = aw[19];
+      }
+    } else if (tex_kind == TEX_NOISE) {
+      float nzid = aw[25];
+      int table = 0;
+      for (int t = 1; t < p.n_noise; ++t)
+        if (nzid == (float)t) table = t;
+      float turb = perlin_turb(p, table, px, py, pz);
+      float marble = 0.5f * (1.0f + sinf(aw[23] * pz + 10.0f * turb));
+      tex[0] = marble;
+      tex[1] = marble;
+      tex[2] = marble;
+    } else if (tex_kind == TEX_IMAGE) {
+      float img_id = aw[24];
+      if (img_id < 0.0f) {                  // missing image: debug cyan
+        tex[0] = 0.0f;
+        tex[1] = 1.0f;
+        tex[2] = 1.0f;
+      } else {
+        float u_s, v_s;
+        if (is_quad) {
+          u_s = px * aw[32] + py * aw[33] + pz * aw[34] - aw[35];
+          v_s = px * aw[36] + py * aw[37] + pz * aw[38] - aw[39];
+        } else {
+          float cth = aw[21], sth = aw[22];
+          float ox_n = cth * nsx - sth * nsz;
+          float oz_n = sth * nsx + cth * nsz;
+          float ny_c = clamp_p(-nsy, -1.0f, 1.0f);
+          float theta = acos_poly(ny_c);
+          float phi = atan2_poly(-oz_n, ox_n) + PI_F;
+          u_s = phi * INV_2PI;
+          v_s = theta * INV_PI;
+        }
+        float uu = clamp_p(u_s, 0.0f, 1.0f);
+        float vv = 1.0f - clamp_p(v_s, 0.0f, 1.0f);
+        tex[0] = 0.0f;
+        tex[1] = 0.0f;
+        tex[2] = 0.0f;
+        for (int i = 0; i < p.n_images; ++i) {
+          if (p.n_images > 1 && img_id != (float)i) continue;
+          const int* dims = p.img_dims + 3 * i;
+          int iw = dims[0], ih = dims[1];
+          int ix = min((int)(uu * (float)iw), iw - 1);
+          int iy = min((int)(vv * (float)ih), ih - 1);
+          int packed = p.texels[(dims[2] + iy) * p.tex_cols + ix];
+          tex[0] = (float)((packed >> 16) & 255) * INV255;
+          tex[1] = (float)((packed >> 8) & 255) * INV255;
+          tex[2] = (float)(packed & 255) * INV255;
+        }
+      }
+    }
+  }
+
+  // emission (live lanes only)
+  const bool is_light = kind == MAT_DIFFUSE_LIGHT;
+  if (is_light) {
+    acc[0] = acc[0] + thr[0] * tex[0];
+    acc[1] = acc[1] + thr[1] * tex[1];
+    acc[2] = acc[2] + thr[2] * tex[2];
+    return false;                           // lights do not scatter
+  }
+
+  // scatter (SCATTER_STREAM | bounce), Material.h / Metal.h / Dielectric.h
+  uint32_t w0 = pix_ctr, w1 = samp, w2 = SCATTER_STREAM | bnc, w3 = 0u;
+  pcg4d(w0, w1, w2, w3);
+  const float u1 = unit(w0), u2 = unit(w1), u3 = unit(w2), u4 = unit(w3);
+  const float zb = 1.0f - 2.0f * u1;
+  const float rxy = sqrtf(fabsf(1.0f - zb * zb));
+  const float phi_b = TWO_PI * u2;
+  const float sb = sinf(phi_b);
+  const float cb = cosf(phi_b);
+  const float inv_dlen = 1.0f / sqrtf(a);
+  const float udx = dx * inv_dlen, udy = dy * inv_dlen, udz = dz * inv_dlen;
+  float ndx, ndy, ndz;
+  if (kind == MAT_ISOTROPIC) {
+    ndx = rxy * cb;
+    ndy = rxy * sb;
+    ndz = zb;
+  } else if (kind == MAT_DIELECTRIC) {
+    float ratio = front ? 1.0f / ior : ior;
+    float cos_t = fmin_p(-(udx * nx + udy * ny + udz * nz), 1.0f);
+    float sin_t = sqrtf(fmax_p(1.0f - cos_t * cos_t, 0.0f));
+    bool cannot = ratio * sin_t > 1.0f;
+    float r0 = (1.0f - ratio) / (1.0f + ratio);
+    r0 = r0 * r0;
+    float one_m = 1.0f - cos_t;
+    float om2 = one_m * one_m;
+    float refl5 = r0 + (1.0f - r0) * om2 * om2 * one_m;
+    if (cannot || refl5 > u4) {
+      float ddn = udx * nx + udy * ny + udz * nz;
+      ndx = udx - 2.0f * ddn * nx;
+      ndy = udy - 2.0f * ddn * ny;
+      ndz = udz - 2.0f * ddn * nz;
+    } else {
+      float fx = ratio * (udx + cos_t * nx);
+      float fy = ratio * (udy + cos_t * ny);
+      float fz = ratio * (udz + cos_t * nz);
+      float plen = fabsf(1.0f - (fx * fx + fy * fy + fz * fz));
+      float par = -sqrtf(plen);
+      ndx = fx + par * nx;
+      ndy = fy + par * ny;
+      ndz = fz + par * nz;
+    }
+    tex[0] = 1.0f;                          // dielectrics attenuate by 1
+    tex[1] = 1.0f;
+    tex[2] = 1.0f;
+  } else {
+    const float rad_b = powf(u3, ONE_THIRD);
+    const float bx = rad_b * rxy * cb;
+    const float by = rad_b * rxy * sb;
+    const float bz = rad_b * zb;
+    if (kind == MAT_METAL) {
+      float ddn = udx * nx + udy * ny + udz * nz;
+      float rx = udx - 2.0f * ddn * nx;
+      float ry = udy - 2.0f * ddn * ny;
+      float rz = udz - 2.0f * ddn * nz;
+      ndx = rx + fuzz * bx;
+      ndy = ry + fuzz * by;
+      ndz = rz + fuzz * bz;
+      if (!((ndx * nx + ndy * ny + ndz * nz) > 0.0f)) return false;
+    } else if (kind == MAT_LAMBERTIAN) {
+      ndx = nx + bx;
+      ndy = ny + by;
+      ndz = nz + bz;
+      if (fabsf(ndx) < EPS8 && fabsf(ndy) < EPS8 && fabsf(ndz) < EPS8) {
+        ndx = nx;
+        ndy = ny;
+        ndz = nz;
+      }
+    } else {
+      ndx = udx;
+      ndy = udy;
+      ndz = udz;
+    }
+  }
+
+  thr[0] = thr[0] * tex[0];
+  thr[1] = thr[1] * tex[1];
+  thr[2] = thr[2] * tex[2];
+  r.ox = px;
+  r.oy = py;
+  r.oz = pz;
+  r.dx = ndx;
+  r.dy = ndy;
+  r.dz = ndz;
+  return true;
+}
+
+}  // namespace mega2
