@@ -36,8 +36,14 @@ import time
 import numpy as np
 import torch
 
-from raytracinginoneweekendincuda_torch import host
 from raytracinginoneweekendincuda_torch.core import rng
+from raytracinginoneweekendincuda_torch.core.image import write_ppm
+from raytracinginoneweekendincuda_torch.models.scenes import (
+    SCENE_NAMES, build_scene,
+)
+from raytracinginoneweekendincuda_torch.scene import api
+from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
+from raytracinginoneweekendincuda_torch.utils.config import RenderConfig
 from raytracinginoneweekendincuda_torch.ops import mega2
 from raytracinginoneweekendincuda_torch.ops.raygen import generate_rays
 from raytracinginoneweekendincuda_torch.ops.render import finalize, render
@@ -63,17 +69,17 @@ def scene_desc(sid: int):
     """Scene ``sid``; image textures that could not be decoded get the
     synthetic texture, so the texel path really runs.  Returns (desc,
     texture label or None)."""
-    desc = host.build_scene(sid)
+    desc = build_scene(sid)
     label = None
     for i, obj in enumerate(desc.objects):
         mat = getattr(obj, "material", None)
         tex = getattr(mat, "texture", None)
-        if isinstance(tex, host.api.ImageTexture):
+        if isinstance(tex, api.ImageTexture):
             if tex.image is None:
                 img = synthetic_texture()
                 desc.objects[i] = dataclasses.replace(
-                    obj, material=host.api.Lambertian(
-                        host.api.ImageTexture(img)))
+                    obj, material=api.Lambertian(
+                        api.ImageTexture(img)))
                 label = "synthetic 256x512 (seed 1984): earthmap.jpg " \
                         "not decoded"
             else:
@@ -84,9 +90,9 @@ def scene_desc(sid: int):
 
 def compile_cfg(sid: int, w: int, h: int, spp: int):
     desc, label = scene_desc(sid)
-    scene, meta = host.compile_scene(desc, w, h, dtype=np.float32)
-    cfg = host.RenderConfig(width=w, height=h, samples_per_pixel=spp,
-                            engine="mega2")
+    scene, meta = compile_scene(desc, w, h, dtype=np.float32)
+    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                       engine="mega2")
     return scene, meta, cfg, label
 
 
@@ -133,7 +139,7 @@ def phase_rng(dev) -> None:
     rs = np.random.default_rng(0)
     words = [rs.integers(0, 2 ** 32, n, dtype=np.uint32) for _ in range(4)]
     with np.errstate(over="ignore"):
-        want = host.pcg4d_numpy(*words)
+        want = rng.pcg4d_numpy(*words)
     got = rng.pcg4d(*[torch.from_numpy(w.view(np.int32)).to(dev)
                       for w in words])
     for a, b in zip(got, want):
@@ -203,7 +209,7 @@ def main() -> int:
         pix = torch.arange(w * h, dtype=torch.int32, device=dev)
         k1 = image_of(mega2.render_radiance_cuda(tab, pix, fp), spp)
         plain = image_of(mega2.render_radiance_plain(tab, pix, fp), spp)
-        compare(k1, plain, f"scene {sid} ({host.SCENE_NAMES[sid]})")
+        compare(k1, plain, f"scene {sid} ({SCENE_NAMES[sid]})")
     if mega2.render_radiance_cuda.launches <= launches0:
         raise AssertionError("K1 launch counter did not rise")
 
@@ -224,7 +230,7 @@ def main() -> int:
         raise AssertionError("main-path image is empty or misshapen")
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "scene0.ppm")
-        host.write_ppm(path, img)
+        write_ppm(path, img)
         with open(path) as f:
             head = [f.readline().strip() for _ in range(3)]
     if head != ["P3", f"{w} {h}", "255"]:

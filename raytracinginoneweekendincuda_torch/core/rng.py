@@ -16,12 +16,40 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host import CAMERA_STREAM, MEDIUM_STREAM, SCATTER_STREAM  # noqa: F401
+# stream words (the third counter word), as in the JAX package's rng.py
+CAMERA_STREAM = 0x0CA30000
+SCATTER_STREAM = 0x5CA70000
+MEDIUM_STREAM = 0x3ED00000
 
 INV_2POW24 = float(np.float32(1.0 / 16777216.0))
 
 _MUL = 1664525
 _INC = 1013904223
+
+
+def pcg4d_numpy(v0, v1, v2, v3):
+    """The same hash over numpy uint32 arrays (the JAX package's numpy
+    reference; arrays wrap silently where scalars would warn)."""
+    v0 = v0 * 1664525 + 1013904223
+    v1 = v1 * 1664525 + 1013904223
+    v2 = v2 * 1664525 + 1013904223
+    v3 = v3 * 1664525 + 1013904223
+
+    v0 = v0 + v1 * v3
+    v1 = v1 + v2 * v0
+    v2 = v2 + v0 * v1
+    v3 = v3 + v1 * v2
+
+    v0 = v0 ^ (v0 >> 16)
+    v1 = v1 ^ (v1 >> 16)
+    v2 = v2 ^ (v2 >> 16)
+    v3 = v3 ^ (v3 >> 16)
+
+    v0 = v0 + v1 * v3
+    v1 = v1 + v2 * v0
+    v2 = v2 + v0 * v1
+    v3 = v3 + v1 * v2
+    return v0, v1, v2, v3
 
 
 def to_word(x: int) -> int:

@@ -35,11 +35,12 @@ import torch
 
 from ..core import rng
 from ..core.samplers import sqrt_f32, unit_ball
-from ..host import (
+from ..scene.compiler import (
     MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_ISOTROPIC, MAT_LAMBERTIAN,
-    MAT_METAL, MED_BOX, TEX_CHECKER, TEX_IMAGE, TEX_NOISE, RenderConfig,
-    SceneArrays, SceneMeta,
+    MAT_METAL, MED_BOX, TEX_CHECKER, TEX_IMAGE, TEX_NOISE, SceneArrays,
+    SceneMeta,
 )
+from ..utils.config import RenderConfig
 from .raygen import camera_tuple, generate_rays
 
 CULL_C = 64        # row padding multiple of the sphere / quad / box tables

@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host import RenderConfig, SceneArrays, SceneMeta
+from ..scene.compiler import SceneArrays, SceneMeta
+from ..utils.config import RenderConfig
 from .mega2 import frame_params, pack_mega2_tables, render_mega2
 
 

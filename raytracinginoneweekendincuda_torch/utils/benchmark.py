@@ -41,7 +41,9 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from ..host import RenderConfig, build_scene, compile_scene
+    from ..models.scenes import build_scene
+    from ..scene.compiler import compile_scene
+    from ..utils.config import RenderConfig
     from ..ops.mega2 import frame_params, pack_mega2_tables, render_mega2
     from ..ops.render import finalize, resolve_device
 

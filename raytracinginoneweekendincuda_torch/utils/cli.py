@@ -51,10 +51,10 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from ..host import (
-        SCENE_NAMES, RenderConfig, build_scene, compile_scene,
-        reference_samples_for_scene, write_png, write_ppm,
-    )
+    from ..core.image import write_png, write_ppm
+    from ..models.scenes import SCENE_NAMES, build_scene
+    from ..scene.compiler import compile_scene
+    from ..utils.config import RenderConfig, reference_samples_for_scene
     from ..ops.render import render, resolve_device
 
     dev = resolve_device(args.device)

@@ -10,9 +10,9 @@ import torch
 import torch_texture_scenes as tex
 from raytracinginoneweekendincuda_torch.ops import mega2
 from raytracinginoneweekendincuda_torch.ops.render import finalize
-from raytracinginoneweekendincuda_tpu.models import scenes
-from raytracinginoneweekendincuda_tpu.scene.compiler import compile_scene
-from raytracinginoneweekendincuda_tpu.utils.config import RenderConfig
+from raytracinginoneweekendincuda_torch.models import scenes
+from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
+from raytracinginoneweekendincuda_torch.utils.config import RenderConfig
 
 pytestmark = pytest.mark.cuda
 

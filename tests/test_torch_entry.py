@@ -24,16 +24,27 @@ def _no_card():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys\n"
-            "import raytracinginoneweekendincuda_torch.ops.render\n"
-            "import raytracinginoneweekendincuda_torch.utils.cli\n"
-            "import raytracinginoneweekendincuda_torch.utils.benchmark\n"
-            "assert 'jax' not in sys.modules, 'jax imported'\n"
-            "print('clean')\n")
+    """Every module of the port, and chip_smoke.py as a module (main not
+    run), import neither jax nor anything of the JAX package."""
+    code = (
+        "import importlib, importlib.util, pkgutil, sys\n"
+        "import raytracinginoneweekendincuda_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                                pkg.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke',\n"
+        "                                              'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m.startswith(\n"
+        "    ('jax', 'raytracinginoneweekendincuda_tpu'))]\n"
+        "assert not bad, bad\n"
+        "print('clean', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and "clean" in r.stdout, r.stderr[-2000:]
+    assert int(r.stdout.split()[-1]) >= 20, r.stdout
 
 
 def test_cli_cpu_writes_ppm(tmp_path):

@@ -1,12 +1,12 @@
 """Texture-gate scenes of ``tests/test_mega2_textures.py`` for the PyTorch
-port's tests (not a test module; imports no JAX, so the card's tests can
-use it): several images, an image on a quad and on box faces, and two
+port's tests (not a test module; built with the port's own scene API, so
+the card's tests can use it where JAX is absent): several images, an image on a quad and on box faces, and two
 Perlin tables."""
 
 import numpy as np
 
-from raytracinginoneweekendincuda_tpu.core.camera import Camera
-from raytracinginoneweekendincuda_tpu.scene.api import (
+from raytracinginoneweekendincuda_torch.core.camera import Camera
+from raytracinginoneweekendincuda_torch.scene.api import (
     Box, DiffuseLight, ImageTexture, Lambertian, NoiseTexture, Quad,
     SceneDesc, Sphere,
 )
