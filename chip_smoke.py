@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel K1 (``csrc/mega2_render.cu``) from the
-sources in this checkout and drives the port's main path -- the CLI's
-``ops/render.render`` with engine ``mega2`` -- at the reference's headline
-config, holding K1 against its plain PyTorch version throughout.  Phases:
+Builds the port's CUDA kernels from the sources in this checkout -- K1
+(``csrc/mega2_render.cu``), K2 (``csrc/mega2_trace.cu``), K3
+(``csrc/replay_fwd.cu``) and K4 (``csrc/replay_bwd.cu``), one nvcc each,
+all started together -- and drives the port's two paths: the render (the
+CLI's ``ops/render.render``, engine ``mega2``, at the reference's headline
+config) and the training step (``parallel/train.make_train_step_mega2``),
+holding every kernel against its plain PyTorch version.  Phases:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. K1's build time;
+2. the kernels' build times and ptxas reports;
 3. pcg4d draws and ``generate_rays`` on the card, bit-exact against the
    numpy uint32 reference / the CPU port;
 4. K1 against ``render_radiance_plain`` on the card for all ten scenes at
@@ -17,7 +20,21 @@ config, holding K1 against its plain PyTorch version throughout.  Phases:
    with K1's launch count over that run; the PPM is written and checked,
    and K1 is compared with the plain version on every 97th pixel id;
 6. scene 9 at 360x180@10 through K1 against the plain version on every
-   97th pixel id, and K1 and the plain version timed at scene 0 360x180@10.
+   97th pixel id, and K1 and the plain version timed at scene 0 360x180@10
+   (K1's bound from that run's lane-bounces);
+7. K2 against ``trace_tapes_plain``: all ten scenes at 64x32, spp 2, K 8
+   (at most 0.1% of lanes may differ), and K2's in-kernel raygen against
+   external rays from ``generate_rays`` on a pinhole scene;
+8. K3 / K4 against ``replay_plain`` and its autograd: all ten scenes at
+   64x32, spp 1, K 8 (forward: K1's bounds; backward: d_rep rel-L2 <=
+   1e-3, at most 1% of lanes whose d_rays or d_bg differ by more than
+   1e-3 of the largest);
+9. the training step at full width: scene 0 at 640x360, spp 8, K 8
+   (1.84 M lanes), Adam lr 1e-2, one warm-up and three timed steps, split
+   into phases with CUDA events, with the K2 / K3 / K4 launch counts of
+   that run; K4 against autograd of ``replay_plain`` on every 97th pixel
+   of sample 0; each kernel timed alone against its plain version at the
+   step's shapes; then the scene-4 loss-decrease check (12x8, 4 steps).
 
 Prints the kernel record and the card on lines of their own, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, before that
@@ -32,6 +49,7 @@ import os
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,8 +63,11 @@ from raytracinginoneweekendincuda_torch.scene import api
 from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
 from raytracinginoneweekendincuda_torch.utils.config import RenderConfig
 from raytracinginoneweekendincuda_torch.ops import mega2
+from raytracinginoneweekendincuda_torch.ops import replay as rp
+from raytracinginoneweekendincuda_torch.ops import replay_cuda as rc
 from raytracinginoneweekendincuda_torch.ops.raygen import generate_rays
 from raytracinginoneweekendincuda_torch.ops.render import finalize, render
+from raytracinginoneweekendincuda_torch.parallel import train
 from raytracinginoneweekendincuda_torch.utils.benchmark import card_line
 
 TOL_ABOVE = 1e-4          # a pixel "differs" when a channel moves more
@@ -56,6 +77,25 @@ STRIDE = 97               # pixel-id stride of the main-path check subset
 MAIN = (1440, 720, 10)    # the main path's frame: width, height, spp
 SMALL = (64, 32, 4)       # every scene, K1 against the plain version
 SIDE = (360, 180, 10)     # scene 9, and the K1 / plain timing of scene 0
+TRACE = (64, 32, 2, 8)    # every scene, K2 against the plain version
+REPLAY = (64, 32, 1, 8)   # every scene, K3 / K4 against the plain version
+TRAIN = (640, 360, 8, 8)  # the training step: width, height, spp, K
+MAX_DIFF_LANES = 0.001    # K2: at most 0.1% of lanes may differ
+GRAD_REL = 1e-3           # K4: d_rep rel-L2, and the per-lane d_rays /
+                          # d_bg tolerance relative to the largest entry
+
+# The card's peaks for the bounds (on-chip-measurement guide, H100 SXM at
+# 700 W): FP32 outside the tensor cores, device memory.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations (each add, multiply, compare, divide, sqrt one op) per
+# row test, counted from csrc/mega2_bounce.cuh: a sphere row (moving
+# centre, quadratic, discriminant) 26, a loose quad row 16, a box slab row
+# 36, a medium 40, and the rest of a bounce (record, emission, scatter,
+# RNG) 100; a replayed bounce (csrc/replay_bounce.cuh: re-intersection,
+# record, scatter) 160, its adjoint with the two recomputes 570.
+OPS_SPHERE, OPS_QUAD, OPS_BOX, OPS_MEDIUM, OPS_BOUNCE = 26, 16, 36, 40, 100
+OPS_REPLAY, OPS_REPLAY_BWD = 160, 570
 
 
 def synthetic_texture() -> np.ndarray:
@@ -88,11 +128,11 @@ def scene_desc(sid: int):
     return desc, label
 
 
-def compile_cfg(sid: int, w: int, h: int, spp: int):
+def compile_cfg(sid: int, w: int, h: int, spp: int, max_bounces: int = 50):
     desc, label = scene_desc(sid)
     scene, meta = compile_scene(desc, w, h, dtype=np.float32)
     cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
-                       engine="mega2")
+                       max_bounces=max_bounces, engine="mega2")
     return scene, meta, cfg, label
 
 
@@ -101,8 +141,8 @@ def image_of(fb: torch.Tensor, spp: int) -> np.ndarray:
 
 
 def compare(k1: np.ndarray, plain: np.ndarray, what: str) -> dict:
-    """Per-pixel comparison of two [P, 3] images, checked against the
-    bounds above."""
+    """Per-pixel comparison of a kernel's [P, 3] image (or radiance) with
+    its plain version's, checked against the bounds above."""
     diff = np.abs(k1.astype(np.float64) - plain.astype(np.float64))
     px = diff.max(axis=1)
     stats = {"pixels": int(px.shape[0]),
@@ -113,10 +153,11 @@ def compare(k1: np.ndarray, plain: np.ndarray, what: str) -> dict:
           f"bit-identical, {stats['above_1e-4']} above 1e-4, mean |diff| "
           f"{stats['mean_abs']:.3e}, max {stats['max_abs']:.3e}", flush=True)
     if not np.isfinite(k1).all():
-        raise AssertionError(f"{what}: K1 produced non-finite values")
+        raise AssertionError(f"{what}: the kernel produced non-finite values")
     if stats["above_1e-4"] > MAX_FRAC_ABOVE * stats["pixels"] \
             or stats["mean_abs"] >= MAX_MEAN:
-        raise AssertionError(f"{what}: K1 disagrees with the plain version")
+        raise AssertionError(f"{what}: the kernel disagrees with the plain "
+                             f"version")
     return stats
 
 
@@ -132,6 +173,77 @@ def timed(fn, repeats: int = 3):
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
     return best, out
+
+
+def cuda_ms(fn, repeats: int = 3, warm: bool = True):
+    """(best device milliseconds of ``fn`` by CUDA events, last result)."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    best, out = float("inf"), None
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        best = min(best, a.elapsed_time(b))
+    return best, out
+
+
+LOADERS = {"mega2_render": mega2.load_kernel,
+           "mega2_trace": mega2.load_trace_kernel,
+           "replay_fwd": rc.load_fwd_kernel,
+           "replay_bwd": rc.load_bwd_kernel}
+
+
+def build_kernels() -> dict:
+    """Every kernel's build record; one nvcc per source, all together."""
+    with ThreadPoolExecutor(len(LOADERS)) as ex:
+        futs = {n: ex.submit(f) for n, f in LOADERS.items()}
+        return {n: f.result()[1] for n, f in futs.items()}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def table_bytes(tab) -> int:
+    return nbytes(tab.sph, tab.quad, tab.attr, tab.med, tab.perm, tab.vec,
+                  tab.texels, tab.img_dims)
+
+
+def pair_ops(tab) -> int:
+    """FP32 ops of one K1 / K2 bounce over this scene's rows."""
+    n_sph = int((tab.sph[:, 9] > 0.5).sum())
+    n_quad = int((tab.quad[:tab.nl_pad, 12] > 0.5).sum())
+    n_box = int((tab.quad[tab.q_pad:, 7] > 0.5).sum()) if tab.b_pad else 0
+    return (n_sph * OPS_SPHERE + n_quad * OPS_QUAD + n_box * OPS_BOX
+            + tab.n_media * OPS_MEDIUM + OPS_BOUNCE)
+
+
+def lane_bounces(tab, tape: torch.Tensor) -> int:
+    """Bounces the lanes of a tape [K, L] ran: every hit, plus the miss
+    that ended a path before K (a path's first -1 after a hit that is not
+    a light).  A metal ray absorbed by its own surface ends the same way
+    and is counted too, so the count is at most that many too high."""
+    K = tape.shape[0]
+    hit = tape >= 0
+    first = torch.where(hit.all(0), K, (~hit).to(torch.int32).argmax(0))
+    prev = tape.gather(0, (first - 1).clamp_min(0)[None].long())[0]
+    geo = (prev >= 0) & (prev < tab.np_rows)
+    light = geo & (tab.attr[prev.clamp(0, tab.np_rows - 1).long(), 10]
+                   == 3.0)
+    ended_by_miss = (first < K) & ((first == 0) | ~light)
+    return int(hit.sum()) + int(ended_by_miss.sum())
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    FP32 ops over the FP32 rate."""
+    tb, to = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def phase_rng(dev) -> None:
@@ -171,6 +283,249 @@ def phase_rng(dev) -> None:
           flush=True)
 
 
+def phase_trace(dev) -> None:
+    w, h, spp, K = TRACE
+    pix_all = torch.arange(w * h, dtype=torch.int32, device=dev)
+    pix, samp = mega2.tape_lanes(pix_all, spp)
+    for sid in range(10):
+        scene, meta, cfg, _ = compile_cfg(sid, w, h, 1, K)
+        tab = mega2.pack_mega2_tables(scene, meta, dev)
+        fp = mega2.frame_params(scene, cfg)
+        got = mega2.trace_tapes_cuda(tab, pix, samp, fp)
+        want = mega2.trace_tapes_plain(tab, pix, samp, fp)
+        differ = float((got != want).any(0).float().mean())
+        print(f"  scene {sid}: {int((got == want).all(0).sum())}/"
+              f"{pix.shape[0]} lanes identical", flush=True)
+        if differ > MAX_DIFF_LANES:
+            raise AssertionError(f"K2 differs on scene {sid}")
+    # in-kernel raygen against external rays (scene 4: pinhole camera)
+    scene, meta, cfg, _ = compile_cfg(4, w, h, 1, K)
+    tab = mega2.pack_mega2_tables(scene, meta, dev)
+    fp = mega2.frame_params(scene, cfg)
+    o, d, tm, _ = generate_rays(fp.cam, pix, samp, w, h, fp.seed)
+    rays = torch.cat([o, d, tm[:, None]], dim=1)
+    ext = mega2.trace_tapes_cuda(tab, pix, samp, fp, rays)
+    inner = mega2.trace_tapes_cuda(tab, pix, samp, fp)
+    same = int((ext == inner).all(0).sum())
+    print(f"  scene 4 external rays: {same}/{pix.shape[0]} lanes identical "
+          f"to the in-kernel raygen", flush=True)
+    if same < (1 - MAX_DIFF_LANES) * pix.shape[0]:
+        raise AssertionError("K2 with external rays differs")
+
+
+def grad_check(tt, rays, tape, pc, bg, g, t_min, what: str) -> dict:
+    """K4 against autograd of replay_plain on the same inputs."""
+    d_rep, d_rays, d_bg = rc.replay_bwd_cuda(tt, tt.rep.detach(), rays, tape,
+                                             pc, 0, bg, g, t_min=t_min)
+    rep = tt.rep.detach().clone().requires_grad_(True)
+    rays_p = rays.clone().requires_grad_(True)
+    bg_p = bg.expand(rays.shape[0], 3).clone().requires_grad_(True)
+    out = rp.replay_plain(tt._replace(rep=rep), rays_p, tape, pc, 0, bg_p,
+                          t_min=t_min)
+    (out * g).sum().backward()
+    zero = lambda x, like: torch.zeros_like(like) if x is None else x
+    want = (zero(rep.grad, rep), zero(rays_p.grad, rays), zero(bg_p.grad, bg_p))
+    rel = float((d_rep - want[0]).norm()) / max(float(want[0].norm()), 1e-30)
+    bad = []
+    for got, ref in ((d_rays, want[1]), (d_bg, want[2])):
+        tol = GRAD_REL * float(ref.abs().max())
+        bad.append(float(((got - ref).abs().max(1).values > tol)
+                         .float().mean()))
+    st = {"d_rep_rel_l2": rel, "d_rays_lanes_off": bad[0],
+          "max_abs": max(float((d_rep - want[0]).abs().max()),
+                         float((d_rays - want[1]).abs().max())),
+          "d_bg_lanes_off": bad[1], "d_rep_norm": float(want[0].norm()),
+          "d_rays_max": float(want[1].abs().max())}
+    print(f"  {what}: d_rep rel-L2 {rel:.2e} (|d_rep| {st['d_rep_norm']:.3e}),"
+          f" lanes off: d_rays {bad[0]:.4f} (max |d_rays| "
+          f"{st['d_rays_max']:.3e}), d_bg {bad[1]:.4f}", flush=True)
+    for t in (d_rep, d_rays, d_bg):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{what}: K4 produced non-finite values")
+    if rel > GRAD_REL or max(bad) > MAX_FRAC_ABOVE:
+        raise AssertionError(f"{what}: K4 disagrees with autograd")
+    return st
+
+
+def replay_inputs(scene, meta, tab, fp, pix, samp: int, tape, dev):
+    tt = rp.replay_table(scene, meta, tab,
+                         kernel_space=mega2.mega2_kernel_id_space(tab, meta),
+                         device=dev)
+    o, d, tm, pc = generate_rays(fp.cam, pix, samp, fp.width, fp.height,
+                                 fp.seed)
+    rays = torch.cat([o, d, tm[:, None]], dim=1).contiguous()
+    bg = torch.tensor(fp.background, dtype=torch.float32, device=dev)
+    rs = np.random.default_rng(1984)
+    g = torch.as_tensor(rs.uniform(0.5, 1.5, (pix.shape[0], 3))
+                        .astype(np.float32), device=dev)
+    return tt, rays, tape, pc, bg, g
+
+
+def phase_replay(dev) -> None:
+    w, h, _, K = REPLAY
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    for sid in range(10):
+        scene, meta, cfg, _ = compile_cfg(sid, w, h, 1, K)
+        tab = mega2.pack_mega2_tables(scene, meta, dev)
+        fp = mega2.frame_params(scene, cfg)
+        tape = mega2.trace_tapes_cuda(tab, pix, torch.zeros_like(pix), fp)
+        tt, rays, tape, pc, bg, g = replay_inputs(scene, meta, tab, fp, pix,
+                                                  0, tape, dev)
+        out = rc.replay_fwd_cuda(tt, tt.rep.detach(), rays, tape, pc, 0, bg,
+                                 t_min=fp.t_min)
+        plain = rp.replay_plain(tt, rays, tape, pc, 0, bg, t_min=fp.t_min)
+        compare(out.cpu().numpy(), plain.detach().cpu().numpy(),
+                f"scene {sid} K3")
+        grad_check(tt, rays, tape, pc, bg, g, fp.t_min, f"scene {sid} K4")
+
+
+def phase_train(dev, card: str) -> dict:
+    """The training step at full width; returns the kernels' numbers."""
+    W, H, spp, K = TRAIN
+    scene, meta, cfg, _ = compile_cfg(0, W, H, spp, K)
+    P = W * H
+    pix_all = torch.arange(P, dtype=torch.int32, device=dev)
+    # target: K1's render of the scene; the start: albedos perturbed
+    target = mega2.render_radiance_cuda(
+        mega2.pack_mega2_tables(scene, meta, dev), pix_all,
+        mega2.frame_params(scene, cfg)) / float(spp)
+    start = scene._replace(tex_c0=np.clip(
+        np.asarray(scene.tex_c0) * 0.5 + 0.2, 0.0, 1.0).astype(np.float32))
+    state = train.init_state(start, lambda ps: torch.optim.Adam(ps, lr=1e-2),
+                             device=dev)
+    step = train.make_train_step_mega2(start, meta, cfg)
+    pix = np.arange(P, dtype=np.int32)
+
+    counters = (mega2.trace_tapes_cuda, rc.replay_fwd_cuda,
+                rc.replay_bwd_cuda)
+    for c in counters:
+        c.launches = 0
+    state, loss = step(state, pix, target)               # warm-up
+    torch.cuda.synchronize()
+    losses, walls, split = [float(loss)], [], {}
+    for _ in range(3):
+        ev = [("start", torch.cuda.Event(enable_timing=True))]
+        ev[0][1].record()
+
+        def mark(name, ev=ev):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            ev.append((name, e))
+
+        t0 = time.perf_counter()
+        state, loss = step(state, pix, target, mark=mark)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        for (_, a), (name, b) in zip(ev, ev[1:]):
+            split.setdefault(name, []).append(a.elapsed_time(b))
+    launches = [c.launches for c in counters]
+    print(f"  {W}x{H}, spp {spp}, K {K} ({P * spp} lanes): ms per step "
+          f"{np.mean(walls):.2f} (best {min(walls):.2f}) on {card}",
+          flush=True)
+    print("  split (mean ms, CUDA events): " + ", ".join(
+        f"{n} {np.mean(v):.2f}" for n, v in split.items())
+        + "  [pack: host packing + upload; trace: K2; forward: derive, "
+          "raygen, K3 x spp; backward: K4 x spp + derive's backward; "
+          "update: Adam]", flush=True)
+    print(f"  launches over the 4 steps: K2 {launches[0]}, K3 {launches[1]}, "
+          f"K4 {launches[2]}; losses {losses}", flush=True)
+    if min(launches) < 1:
+        raise AssertionError("the training step did not launch every kernel")
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite training loss")
+
+    # the kernels alone at the step's shapes, against their plain versions
+    sc_np = train.merge_params(start, train.params_to_numpy(state.params))
+    tab = mega2.pack_mega2_tables(sc_np, meta, dev)
+    fp = mega2.frame_params(sc_np, cfg)
+    lane_pix, lane_samp = mega2.tape_lanes(pix_all, spp)
+    k2_ms, tapes = cuda_ms(lambda: mega2.trace_tapes_cuda(
+        tab, lane_pix, lane_samp, fp))
+    k2_plain_ms, plain_tapes = cuda_ms(lambda: mega2.trace_tapes_plain(
+        tab, lane_pix, lane_samp, fp), repeats=1, warm=False)
+    same = float((tapes == plain_tapes).all(0).float().mean())
+    k2_err = float((tapes - plain_tapes).abs().max())
+    del plain_tapes
+    print(f"  K2 alone: {k2_ms:.3f} ms, plain {k2_plain_ms:.1f} ms; "
+          f"{same:.6f} of lanes identical", flush=True)
+    if same < 1 - MAX_DIFF_LANES:
+        raise AssertionError("K2 differs from its plain version")
+    lb_all = lane_bounces(tab, tapes)
+    tape0 = tapes[:, :P].contiguous()                    # sample 0
+    lb0 = lane_bounces(tab, tape0)
+    tt, rays, tape0, pc, bg, g = replay_inputs(sc_np, meta, tab, fp,
+                                               pix_all, 0, tape0, dev)
+    k3_ms, out = cuda_ms(lambda: rc.replay_fwd_cuda(
+        tt, tt.rep.detach(), rays, tape0, pc, 0, bg, t_min=fp.t_min))
+    with torch.no_grad():
+        k3_plain_ms, plain = cuda_ms(lambda: rp.replay_plain(
+            tt, rays, tape0, pc, 0, bg, t_min=fp.t_min), repeats=1,
+            warm=False)
+    k3_st = compare(out.cpu().numpy(), plain.cpu().numpy(),
+                    f"K3 sample 0, all {P} pixels")
+    k4_ms, _ = cuda_ms(lambda: rc.replay_bwd_cuda(
+        tt, tt.rep.detach(), rays, tape0, pc, 0, bg, g, t_min=fp.t_min))
+    rep = tt.rep.detach().clone().requires_grad_(True)
+    rays_p = rays.clone().requires_grad_(True)
+    out_p = rp.replay_plain(tt._replace(rep=rep), rays_p, tape0, pc, 0, bg,
+                            t_min=fp.t_min)
+    k4_plain_ms, _ = cuda_ms(lambda: torch.autograd.grad(
+        out_p, (rep, rays_p), g, allow_unused=True), repeats=1, warm=False)
+    del out_p, rep, rays_p
+    print(f"  K3 alone: {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms; K4 "
+          f"alone: {k4_ms:.3f} ms, plain (autograd backward) "
+          f"{k4_plain_ms:.1f} ms; per launch of {P} lanes; lane-bounces "
+          f"{lb0} (sample 0), {lb_all} (all samples)", flush=True)
+    sub = pix_all[::STRIDE].contiguous()
+    k4_st = grad_check(*replay_inputs(
+        sc_np, meta, tab, fp, sub, 0,
+        mega2.trace_tapes_cuda(tab, sub, torch.zeros_like(sub), fp), dev),
+        fp.t_min, f"K4 sample 0, every {STRIDE}th pixel")
+
+    n_geo = table_bytes(tab)
+    n_tt = nbytes(tt.rep, tt.med, tt.perm, tt.vec, tt.texels, tt.img_dims)
+    L = P * spp
+    recs = {
+        "mega2_trace": dict(
+            launches=launches[0], max_abs_err=k2_err,
+            ms=k2_ms, plain_ms=k2_plain_ms,
+            bound=bound(n_geo + L * (4 + 4 + 4 * K), lb_all * pair_ops(tab))),
+        "replay_fwd": dict(
+            launches=launches[1], max_abs_err=k3_st["max_abs"], ms=k3_ms,
+            plain_ms=k3_plain_ms,
+            bound=bound(n_tt + P * (28 + 4 * K + 4 + 12), lb0 * OPS_REPLAY)),
+        "replay_bwd": dict(
+            launches=launches[2], max_abs_err=k4_st["max_abs"],
+            ms=k4_ms, plain_ms=k4_plain_ms,
+            bound=bound(n_tt + nbytes(tt.rep)
+                        + P * (28 + 4 * K + 4 + 12 + 28 + 12),
+                        lb0 * OPS_REPLAY_BWD)),
+    }
+    for name, r in recs.items():
+        print(f"  {name}: bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+              f"measured {r['ms']:.3f} ms", flush=True)
+
+    # the scene-4 loss-decrease check (tests/test_torch_train.py's config)
+    scene, meta, cfg, _ = compile_cfg(4, 12, 8, 2, 4)
+    p4 = torch.arange(96, dtype=torch.int32, device=dev)
+    tgt = mega2.render_radiance_cuda(mega2.pack_mega2_tables(
+        scene, meta, dev), p4, mega2.frame_params(scene, cfg)) / 2.0
+    start = scene._replace(tex_c0=np.clip(
+        np.asarray(scene.tex_c0) * 0.5 + 0.2, 0.0, 1.0).astype(np.float32))
+    st4 = train.init_state(start, lambda ps: torch.optim.Adam(ps, lr=0.05),
+                           device=dev)
+    step4 = train.make_train_step_mega2(start, meta, cfg)
+    l4 = []
+    for _ in range(4):
+        st4, loss = step4(st4, np.arange(96), tgt)
+        l4.append(float(loss))
+    print(f"  scene 4 at 12x8@2, 4 steps: losses {l4}", flush=True)
+    if not (np.isfinite(l4).all() and l4[-1] < 0.7 * l4[0]):
+        raise AssertionError("scene 4 loss did not fall below 0.7x")
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -185,13 +540,16 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)",
           flush=True)
 
-    _, build = mega2.load_kernel()
-    regs = [ln.strip() for ln in build["ptxas"].splitlines()
-            if "registers" in ln or "spill" in ln]
-    print(f"[2] K1 build: {build['seconds']:.2f} s ({build['path']})",
+    t0 = time.perf_counter()
+    builds = build_kernels()
+    print(f"[2] kernel builds, in parallel: {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for ln in regs:
-        print(f"  ptxas: {ln}", flush=True)
+    for kname, build in builds.items():
+        print(f"  {kname}: {build['seconds']:.2f} s ({build['path']})",
+              flush=True)
+        for ln in build["ptxas"].splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"    ptxas: {ln.strip()}", flush=True)
 
     print("[3] RNG and raygen on the card", flush=True)
     phase_rng(dev)
@@ -274,19 +632,59 @@ def main() -> int:
     k1_s2, _ = timed(lambda: mega2.render_radiance_cuda(tab, pix, fp))
     print(f"  scene 0 K1: {k1_s:.4f} s, then {k1_s2:.4f} s; plain "
           f"{plain_s:.4f} s; on {card}", flush=True)
+    # K1's bound: this frame's lane-bounces, counted from K2's tape of the
+    # same (pixel, sample) lanes at the same depth
+    lane_pix, lane_samp = mega2.tape_lanes(pix, spp)
+    k1_lb = lane_bounces(tab, mega2.trace_tapes_cuda(tab, lane_pix,
+                                                     lane_samp, fp))
+    k1_bound = bound(table_bytes(tab) + pix.shape[0] * (4 + 12),
+                     k1_lb * pair_ops(tab))
+    print(f"  K1 bound at scene 0 {w}x{h}@{spp}: {k1_lb} lane-bounces, "
+          f"{k1_bound[0]:.3f} ms ({k1_bound[1]})", flush=True)
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    w, h, spp, K = TRACE
+    print(f"[7] K2 vs plain, all scenes at {w}x{h}, spp {spp}, K {K}",
+          flush=True)
+    phase_trace(dev)
+
+    w, h, spp, K = REPLAY
+    print(f"[8] K3 / K4 vs replay_plain and its autograd, all scenes at "
+          f"{w}x{h}, spp {spp}, K {K}", flush=True)
+    phase_replay(dev)
+
+    w, h, spp, K = TRAIN
+    print(f"[9] main path: parallel/train.make_train_step_mega2, scene 0 at "
+          f"{w}x{h}, spp {spp}, K {K}, Adam lr 1e-2", flush=True)
+    recs = phase_train(dev, card)
+
+    if any(m.startswith(("jax", "raytracinginoneweekendincuda_tpu"))
+           for m in sys.modules):
+        raise AssertionError("the port imported jax or the JAX package")
+    recs = {"mega2_render": dict(
+        launches=launches, max_abs_err=main_st["max_abs"],
+        ms=min(k1_s, k1_s2) * 1e3, plain_ms=plain_s * 1e3, bound=k1_bound),
+        **recs}
+    replaces = {
+        "mega2_render": "raytracinginoneweekendincuda_tpu/ops/mega2.py:797",
+        "mega2_trace": "raytracinginoneweekendincuda_tpu/ops/mega2.py:797",
+        "replay_fwd":
+            "raytracinginoneweekendincuda_tpu/ops/pallas_replay.py:655",
+        "replay_bwd":
+            "raytracinginoneweekendincuda_tpu/ops/pallas_replay.py:693",
+    }
     print(json.dumps({"kernels": [{
-        "name": "mega2_render",
+        "name": kname,
         "route": "cuda",
-        "source": "raytracinginoneweekendincuda_torch/csrc/mega2_render.cu",
-        "replaces": "raytracinginoneweekendincuda_tpu/ops/mega2.py:797",
-        "launches": launches,
-        "max_abs_err": main_st["max_abs"],
-        "ms": min(k1_s, k1_s2) * 1e3,
-        "plain_ms": plain_s * 1e3,
-    }]}))
+        "source": f"raytracinginoneweekendincuda_torch/csrc/{kname}.cu",
+        "replaces": replaces[kname],
+        "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound"][0],
+        "bound_by": r["bound"][1],
+        "library_ms": None,
+    } for kname, r in recs.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

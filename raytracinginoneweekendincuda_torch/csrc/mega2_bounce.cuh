@@ -5,8 +5,8 @@
 // key space over spheres, loose quads and axis-aligned box slabs; constant
 // media; winner attributes; checker / Perlin-marble / image textures;
 // emission; the five materials' scatter.  The render kernel (K1,
-// mega2_render.cu) runs it per sample; the winner-tape trace kernel will
-// reuse it.
+// mega2_render.cu) runs it per sample; the winner-tape trace kernel (K2,
+// mega2_trace.cu) runs it with textures compiled out.
 //
 // Arithmetic follows the plain PyTorch version (ops/mega2.py) op for op, in
 // the same association order, and is compiled with --fmad=false: PyTorch's
@@ -229,6 +229,10 @@ __device__ __forceinline__ float acos_poly(float x) {
 // Advances the path by one bounce: finds the closest hit, adds background
 // (miss) or emission to `acc`, scatters.  Returns whether the path goes on;
 // `win` receives the winner row (-1 miss, np_rows + m for medium m).
+// kTextures = false skips checker / marble / image evaluation: winners,
+// normals and scatter do not depend on texture values (only thr and acc
+// do), so the trace kernel compiles the texture machinery out.
+template <bool kTextures = true>
 __device__ __forceinline__ bool bounce(const Params& p, uint32_t pix_ctr,
                                        uint32_t samp, uint32_t bnc, Ray& r,
                                        float thr[3], float acc[3], int& win) {
@@ -428,7 +432,9 @@ __device__ __forceinline__ bool bounce(const Params& p, uint32_t pix_ctr,
     tex[0] = aw[14];
     tex[1] = aw[15];
     tex[2] = aw[16];
-    if (tex_kind == TEX_CHECKER) {
+    if (!kTextures) {
+      // solid colour stands in: only thr / acc read it
+    } else if (tex_kind == TEX_CHECKER) {
       float inv_s = aw[20];
       int cx = (int)floorf(inv_s * px);
       int cy = (int)floorf(inv_s * py);

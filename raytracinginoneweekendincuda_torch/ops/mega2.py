@@ -749,9 +749,14 @@ def _scatter(kind, fuzz, ior, front, is_light, n, d, a, u1, u2, u3, u4):
     return new, scattered
 
 
-def _bounce(tab, fp, o, d, tm, thr, acc, pix_ctr, samp, bounce, chunk):
+def _bounce(tab, fp, o, d, tm, thr, acc, pix_ctr, samp, bounce, chunk,
+            textures: bool = True):
     """One bounce of live rays (all [N, ...]).  Returns (o, d, thr, acc,
-    alive) after hit -> record -> texture -> emission -> scatter."""
+    alive, win) after hit -> record -> texture -> emission -> scatter;
+    ``win`` is the winner's kernel row (-1 miss, np_rows + m medium m).
+    ``textures=False`` skips checker / marble / image evaluation (the
+    trace: winners and scatter do not depend on texture values, so only
+    ``thr`` and ``acc`` differ)."""
     dev = o.device
     dx, dy, dz = d.unbind(1)
     a = dx * dx + dy * dy + dz * dz
@@ -793,7 +798,7 @@ def _bounce(tab, fp, o, d, tm, thr, acc, pix_ctr, samp, bounce, chunk):
     even = ((cells[:, 0] + cells[:, 1] + cells[:, 2]) & 1) == 0
     is_ck = tex_kind == float(TEX_CHECKER)
     tex = torch.where((is_ck & ~even)[:, None], aw[:, 17:20], tex)
-    is_nz = hit & (tex_kind == float(TEX_NOISE))
+    is_nz = hit & (tex_kind == float(TEX_NOISE)) & textures
     if bool(is_nz.any()):
         sel = is_nz.nonzero()[:, 0]
         ps, aws = p[sel], aw[sel]
@@ -806,7 +811,7 @@ def _bounce(tab, fp, o, d, tm, thr, acc, pix_ctr, samp, bounce, chunk):
                 tab, t, ps[:, 0], ps[:, 1], ps[:, 2]), turb)
         marble = 0.5 * (1.0 + torch.sin(aws[:, 23] * ps[:, 2] + 10.0 * turb))
         tex = tex.index_put((sel,), marble[:, None].expand(-1, 3))
-    is_im = hit & (tex_kind == float(TEX_IMAGE))
+    is_im = hit & (tex_kind == float(TEX_IMAGE)) & textures
     if bool(is_im.any()):
         sel = is_im.nonzero()[:, 0]
         tex = tex.index_put((sel,), _image_tex(tab, aw[sel], p[sel], ns[sel],
@@ -825,7 +830,7 @@ def _bounce(tab, fp, o, d, tm, thr, acc, pix_ctr, samp, bounce, chunk):
     att = torch.where((kind == float(MAT_DIELECTRIC))[:, None], 1.0, tex)
     alive = hit & scattered
     thr = torch.where(alive[:, None], thr * att, thr)
-    return p, new_d, thr, acc, alive
+    return p, new_d, thr, acc, alive, win
 
 
 def render_radiance_plain(tab: Mega2Tables, pix: torch.Tensor,
@@ -848,7 +853,7 @@ def render_radiance_plain(tab: Mega2Tables, pix: torch.Tensor,
         done = torch.zeros_like(o)
         live = torch.arange(ids.shape[0], device=dev)
         for b in range(max(fp.max_bounces, 1)):
-            o, d, thr, acc, alive = _bounce(
+            o, d, thr, acc, alive, _ = _bounce(
                 tab, fp, o, d, tm, thr, acc, pix_ctr, samp, b, chunk)
             if b + 1 >= fp.max_bounces:
                 alive = torch.zeros_like(alive)
@@ -911,29 +916,13 @@ def render_radiance_cuda(tab: Mega2Tables, pix: torch.Tensor,
     dev = pix.device
     if dev.type != "cuda":
         raise ValueError(f"render_radiance_cuda needs CUDA tensors, got {dev}")
-    for name in ("sph", "quad", "attr", "med", "perm", "vec", "texels",
-                 "img_dims"):
-        t = getattr(tab, name)
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"table {name} must be contiguous on {dev}")
+    _check_tables(tab, dev)
     if pix.dtype != torch.int32 or pix.dim() != 1:
         raise ValueError("pix must be a 1-D int32 tensor")
     pix = pix.contiguous()
     lib, _ = load_kernel()
     out = torch.empty((pix.shape[0], 3), dtype=torch.float32, device=dev)
-    prm = _Params(
-        sph=tab.sph.data_ptr(), quad=tab.quad.data_ptr(),
-        attr=tab.attr.data_ptr(), med=tab.med.data_ptr(),
-        perm=tab.perm.data_ptr(), vec=tab.vec.data_ptr(),
-        texels=tab.texels.data_ptr(), img_dims=tab.img_dims.data_ptr(),
-        cam=(ctypes.c_float * 21)(*fp.cam),
-        bg=(ctypes.c_float * 3)(*fp.background),
-        t_min=fp.t_min, s_pad=tab.s_pad, nl_pad=tab.nl_pad, q_pad=tab.q_pad,
-        b_pad=tab.b_pad, np_rows=tab.np_rows, n_media=tab.n_media,
-        n_noise=tab.n_noise, n_images=tab.n_images,
-        tex_cols=tab.texels.shape[1], width=fp.width, height=fp.height,
-        spp=fp.spp, max_bounces=fp.max_bounces,
-        seed=fp.seed & 0xFFFFFFFF)
+    prm = _params(tab, fp)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mega2_render_launch(ctypes.byref(prm), pix.data_ptr(),
@@ -965,3 +954,183 @@ def render_mega2(tab: Mega2Tables, fp: FrameParams) -> torch.Tensor:
     npix = fp.width * fp.height
     pix = torch.arange(npix, dtype=torch.int32, device=tab.sph.device)
     return render_radiance(tab, pix, fp)
+
+
+# --------------------------------------------------------------------------
+# K2: the winner-tape trace (plain version, CUDA wrapper, driver)
+
+
+def trace_tapes_plain(tab: Mega2Tables, pix: torch.Tensor, samp: torch.Tensor,
+                      fp: FrameParams, rays: torch.Tensor | None = None, *,
+                      chunk: int = 256) -> torch.Tensor:
+    """Winner kernel rows [max_bounces, N] i32 of one (pixel, sample) per
+    lane: ``pix`` [N] pixel ids (< 0: padding, all -1), ``samp`` [N]
+    sample ids.  -1 marks a miss and every bounce after the path ended.
+    ``rays`` [N, 7] (origin, direction, time) replaces the camera rays.
+    Plain PyTorch, built from ``_bounce`` with textures skipped."""
+    dev = pix.device
+    K = fp.max_bounces
+    N = pix.shape[0]
+    tape = torch.full((K, N), -1, dtype=torch.int32, device=dev)
+    ids = (pix >= 0).nonzero()[:, 0]
+    pix_v = pix[ids]
+    samp_v = samp[ids].to(torch.int32)
+    o, d, tm, pix_ctr = generate_rays(fp.cam, pix_v, samp_v, fp.width,
+                                      fp.height, fp.seed)
+    if rays is not None:
+        o, d, tm = rays[ids, 0:3], rays[ids, 3:6], rays[ids, 6]
+    thr = torch.ones_like(o)
+    acc = torch.zeros_like(o)
+    live = ids
+    for b in range(K):
+        o, d, thr, acc, alive, win = _bounce(
+            tab, fp, o, d, tm, thr, acc, pix_ctr, samp_v, b, chunk,
+            textures=False)
+        tape[b, live] = win.to(torch.int32)
+        keep = alive.nonzero()[:, 0]
+        if keep.numel() == 0:
+            break
+        live = live[keep]
+        o, d, tm, thr, acc = o[keep], d[keep], tm[keep], thr[keep], acc[keep]
+        pix_ctr, samp_v = pix_ctr[keep], samp_v[keep]
+    return tape
+
+
+def _params(tab: Mega2Tables, fp: FrameParams) -> _Params:
+    return _Params(
+        sph=tab.sph.data_ptr(), quad=tab.quad.data_ptr(),
+        attr=tab.attr.data_ptr(), med=tab.med.data_ptr(),
+        perm=tab.perm.data_ptr(), vec=tab.vec.data_ptr(),
+        texels=tab.texels.data_ptr(), img_dims=tab.img_dims.data_ptr(),
+        cam=(ctypes.c_float * 21)(*fp.cam),
+        bg=(ctypes.c_float * 3)(*fp.background),
+        t_min=fp.t_min, s_pad=tab.s_pad, nl_pad=tab.nl_pad, q_pad=tab.q_pad,
+        b_pad=tab.b_pad, np_rows=tab.np_rows, n_media=tab.n_media,
+        n_noise=tab.n_noise, n_images=tab.n_images,
+        tex_cols=tab.texels.shape[1], width=fp.width, height=fp.height,
+        spp=fp.spp, max_bounces=fp.max_bounces,
+        seed=fp.seed & 0xFFFFFFFF)
+
+
+def _check_tables(tab: Mega2Tables, dev) -> None:
+    for name in ("sph", "quad", "attr", "med", "perm", "vec", "texels",
+                 "img_dims"):
+        t = getattr(tab, name)
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"table {name} must be contiguous on {dev}")
+
+
+def load_trace_kernel():
+    """Build (at first use) and load K2; returns (CDLL, build record)."""
+    from ..utils.cuda_build import load_library
+
+    lib, record = load_library("mega2_trace")
+    lib.mega2_trace_launch.argtypes = [
+        ctypes.POINTER(_Params), ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.mega2_trace_launch.restype = ctypes.c_int
+    lib.mega2_trace_params_size.argtypes = []
+    lib.mega2_trace_params_size.restype = ctypes.c_int
+    if lib.mega2_trace_params_size() != ctypes.sizeof(_Params):
+        raise RuntimeError("mega2::Params and its ctypes mirror differ")
+    return lib, record
+
+
+def trace_tapes_cuda(tab: Mega2Tables, pix: torch.Tensor, samp: torch.Tensor,
+                     fp: FrameParams,
+                     rays: torch.Tensor | None = None) -> torch.Tensor:
+    """K2 on the card: `trace_tapes_plain`'s tape [max_bounces, N] i32 for
+    int32 ``pix`` / ``samp`` [N] (and optional f32 ``rays`` [N, 7]) on a
+    CUDA device.  Launches on the current stream, no synchronisation."""
+    dev = pix.device
+    if dev.type != "cuda":
+        raise ValueError(f"trace_tapes_cuda needs CUDA tensors, got {dev}")
+    _check_tables(tab, dev)
+    n = pix.shape[0]
+    if pix.dtype != torch.int32 or pix.dim() != 1:
+        raise ValueError("pix must be a 1-D int32 tensor")
+    if samp.dtype != torch.int32 or samp.shape != pix.shape \
+            or samp.device != dev:
+        raise ValueError("samp must be an int32 tensor shaped like pix")
+    if rays is not None and (rays.dtype != torch.float32
+                             or rays.shape != (n, 7) or rays.device != dev):
+        raise ValueError("rays must be f32 [N, 7] on the same device")
+    if fp.max_bounces < 1:
+        raise ValueError("max_bounces must be at least 1")
+    pix, samp = pix.contiguous(), samp.contiguous()
+    rays = rays.contiguous() if rays is not None else None
+    lib, _ = load_trace_kernel()
+    out = torch.empty((fp.max_bounces, n), dtype=torch.int32, device=dev)
+    prm = _params(tab, fp)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mega2_trace_launch(
+            ctypes.byref(prm), pix.data_ptr(), samp.data_ptr(),
+            rays.data_ptr() if rays is not None else None, n,
+            out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"mega2 trace kernel launch failed: CUDA error "
+                           f"{err}")
+    trace_tapes_cuda.launches += 1
+    return out
+
+
+trace_tapes_cuda.launches = 0
+
+
+def trace_tapes(tab: Mega2Tables, pix: torch.Tensor, samp: torch.Tensor,
+                fp: FrameParams, rays: torch.Tensor | None = None):
+    """Winner tape [max_bounces, N]: the plain version for CPU tensors, K2
+    for CUDA tensors.  No fallback between them."""
+    if pix.device.type == "cpu":
+        return trace_tapes_plain(tab, pix, samp, fp, rays)
+    if pix.device.type == "cuda":
+        return trace_tapes_cuda(tab, pix.to(torch.int32),
+                                samp.to(torch.int32), fp, rays)
+    raise ValueError(f"no mega2 trace for device {pix.device}")
+
+
+def tape_lanes(pix_ids: torch.Tensor, n_samples: int):
+    """Sample-major lanes of a tape batch: lane ``s*B + b`` traces pixel
+    ``pix_ids[b]`` at sample ``s``.  Returns (pix [L], samp [L]) int32."""
+    B = pix_ids.shape[0]
+    lane = torch.arange(B * n_samples, dtype=torch.int64,
+                        device=pix_ids.device)
+    return pix_ids.to(torch.int32)[lane % B], (lane // B).to(torch.int32)
+
+
+def mega2_tapes(scene: SceneArrays, meta: SceneMeta, pix_ids, n_samples: int,
+                *, width: int, height: int, max_bounces: int, t_min: float,
+                seed: int, id_space: str = "global", device="cuda",
+                tab: Mega2Tables | None = None) -> torch.Tensor:
+    """Winner tapes [n_samples, max_bounces, B] for samples
+    0..n_samples-1 of the pixel ids [B], all samples in one trace.
+
+    ``id_space="global"`` maps kernel rows to the scene ids of the replay
+    (spheres [0, S), quads [S, S+Q), media S+Q+m); ``"kernel"`` keeps the
+    trace's own rows (see `mega2_kernel_id_space`).  ``tab`` reuses tables
+    already packed from ``scene``."""
+    if id_space not in ("global", "kernel"):
+        raise ValueError(f"unknown id_space {id_space!r}")
+    dev = torch.device(device)
+    if tab is None:
+        tab = pack_mega2_tables(scene, meta, dev)
+    cfg = RenderConfig(width=width, height=height, samples_per_pixel=1,
+                       max_bounces=max_bounces, t_min=t_min, seed=seed)
+    fp = frame_params(scene, cfg)
+    pix_ids = torch.as_tensor(np.asarray(pix_ids, np.int32), device=dev)
+    B = pix_ids.shape[0]
+    pix, samp = tape_lanes(pix_ids, n_samples)
+    tape = trace_tapes(tab, pix, samp, fp)
+    if id_space == "global":
+        tape = torch.where(tape >= 0, tab.remap[tape.clamp_min(0).long()],
+                           -1)
+    return tape.reshape(max_bounces, n_samples, B).permute(1, 0, 2)
+
+
+def mega2_kernel_id_space(tab: Mega2Tables, meta: SceneMeta):
+    """(remap, s_pad) of the trace's winner rows: ``remap[k]`` is the
+    global scene id of kernel row k (-1 for padding rows, which never
+    win); rows [0, s_pad) are spheres, [s_pad, np_rows) quads, and
+    np_rows + m is medium m."""
+    return tab.remap[:tab.np_rows + meta.n_media], tab.s_pad

@@ -4,6 +4,11 @@ Port of ``raytracinginoneweekendincuda_tpu/ops/raygen.py::generate_rays``
 in the op order of the mega2 kernel's ``raygen``, which mirrors it step
 for step.  Pixel ids are ``j*W + i`` with ``j`` counting up from the
 bottom row; the RNG key is ``pix_ctr = uint32(pix) ^ seed``.
+
+The camera is either `camera_tuple` (python floats: the render path) or a
+``CameraParams`` of 0-d / [3] f32 tensors (the gradient path: the rays are
+then differentiable in every camera leaf).  Both forms run the same ops
+in the same order, so they give bit-identical rays.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core import rng
+from ..core.camera import CameraParams
 from ..core.samplers import unit_disk
 
 
@@ -32,15 +38,31 @@ def pixel_counter(pix: torch.Tensor, seed: int) -> torch.Tensor:
     return pix.to(torch.int32) ^ rng.to_word(seed)
 
 
-def generate_rays(cam: tuple, pix: torch.Tensor, sample, width: int,
+def _camera_scalars(cam: CameraParams) -> tuple:
+    """The 21 `camera_tuple` entries as 0-d tensors of ``cam``'s leaves
+    (differentiable), the shutter interval as ``time1 - time0`` in f32."""
+    vals = []
+    for name in ("origin", "lower_left", "horizontal", "vertical", "u", "v"):
+        vals.extend(getattr(cam, name).unbind(0))
+    return (*vals, cam.lens_radius, cam.time0, cam.time1 - cam.time0)
+
+
+def generate_rays(cam, pix: torch.Tensor, sample, width: int,
                   height: int, seed: int):
     """Camera rays for int pixel ids ``pix`` [B] at ``sample`` (int or [B]).
 
-    ``cam`` is `camera_tuple`.  Returns (origin [B,3], direction [B,3],
-    time [B], pix_ctr [B] int32), all f32 but the counter."""
+    ``cam`` is `camera_tuple` or a ``CameraParams`` of f32 tensors on
+    ``pix``'s device.  Returns (origin [B,3], direction [B,3], time [B],
+    pix_ctr [B] int32), all f32 but the counter."""
     dev = pix.device
-    (c_ox, c_oy, c_oz, llx, lly, llz, hx, hy, hz, vx, vy, vz,
-     ux, uy, uz, cvx, cvy, cvz, lens_r, tm0, tm1) = cam
+    if isinstance(cam, CameraParams):
+        (c_ox, c_oy, c_oz, llx, lly, llz, hx, hy, hz, vx, vy, vz,
+         ux, uy, uz, cvx, cvy, cvz, lens_r, tm0, shutter) = \
+            _camera_scalars(cam)
+    else:
+        (c_ox, c_oy, c_oz, llx, lly, llz, hx, hy, hz, vx, vy, vz,
+         ux, uy, uz, cvx, cvy, cvz, lens_r, tm0, tm1) = cam
+        shutter = float(np.float32(tm1) - np.float32(tm0))
     pix_ctr = pixel_counter(pix, seed)
     ju, jv, l1, l2 = rng.uniform4(pix_ctr, sample, rng.CAMERA_STREAM, 0)
     tu = rng.uniform4(pix_ctr, sample, rng.CAMERA_STREAM + 1, 0)[0]
@@ -65,5 +87,5 @@ def generate_rays(cam: tuple, pix: torch.Tensor, sample, width: int,
         lly + s * hy + t * vy - c_oy - offy,
         llz + s * hz + t * vz - c_oz - offz,
     ], dim=-1)
-    time = tm0 + tu * float(np.float32(tm1) - np.float32(tm0))
+    time = tm0 + tu * shutter
     return origin, direction, time, pix_ctr
