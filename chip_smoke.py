@@ -175,21 +175,38 @@ def timed(fn, repeats: int = 3):
     return best, out
 
 
-def cuda_ms(fn, repeats: int = 3, warm: bool = True):
-    """(best device milliseconds of ``fn`` by CUDA events, last result)."""
-    if warm:
-        fn()
+def once_ms(fn):
+    """(milliseconds of one call of ``fn`` by CUDA events, its result):
+    for the plain versions, which run long enough that the host's share
+    is small."""
     torch.cuda.synchronize()
-    best, out = float("inf"), None
-    for _ in range(repeats):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = fn()
-        b.record()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), out
+
+
+def device_ms(fn, kernel: str, repeats: int = 5) -> float:
+    """Mean device milliseconds of the CUDA kernel named ``kernel`` over
+    ``repeats`` calls of ``fn``, from torch.profiler (the kernel alone,
+    without the wrapper's host time that CUDA events around a short
+    launch would include)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
         torch.cuda.synchronize()
-        best = min(best, a.elapsed_time(b))
-    return best, out
+    evs = [ev for ev in prof.key_averages() if kernel in ev.key]
+    if not evs:
+        raise AssertionError(f"the profiler saw no {kernel} launch")
+    us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in evs)
+    return us / 1e3 / sum(ev.count for ev in evs)
 
 
 LOADERS = {"mega2_render": mega2.load_kernel,
@@ -237,6 +254,23 @@ def lane_bounces(tab, tape: torch.Tensor) -> int:
                    == 3.0)
     ended_by_miss = (first < K) & ((first == 0) | ~light)
     return int(hit.sum()) + int(ended_by_miss.sum())
+
+
+def row_contention(tape: torch.Tensor) -> dict:
+    """How K4's d_rep atomics see a tape [K, N]: the share of hits on the
+    hottest row, and the share of warp-bounces with a hit whose hits all
+    share one row (K4 adds those with one atomic per column)."""
+    hits = tape[tape >= 0].long()
+    counts = torch.bincount(hits)
+    K, N = tape.shape
+    w = tape[:, :N - N % 32].reshape(K, -1, 32)
+    top = w.max(-1, keepdim=True).values
+    busy = top[..., 0] >= 0
+    uniform = ((w < 0) | (w == top)).all(-1) & busy
+    return {"hot_row": int(counts.argmax()),
+            "hot_share": float(counts.max()) / max(int(hits.numel()), 1),
+            "uniform_warp_share": float(uniform.sum())
+            / max(int(busy.sum()), 1)}
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -383,7 +417,7 @@ def phase_train(dev, card: str) -> dict:
     """The training step at full width; returns the kernels' numbers."""
     W, H, spp, K = TRAIN
     scene, meta, cfg, _ = compile_cfg(0, W, H, spp, K)
-    P = W * H
+    P, L = W * H, W * H * spp
     pix_all = torch.arange(P, dtype=torch.int32, device=dev)
     # target: K1's render of the scene; the start: albedos perturbed
     target = mega2.render_radiance_cuda(
@@ -440,43 +474,56 @@ def phase_train(dev, card: str) -> dict:
     tab = mega2.pack_mega2_tables(sc_np, meta, dev)
     fp = mega2.frame_params(sc_np, cfg)
     lane_pix, lane_samp = mega2.tape_lanes(pix_all, spp)
-    k2_ms, tapes = cuda_ms(lambda: mega2.trace_tapes_cuda(
+    tapes = mega2.trace_tapes_cuda(tab, lane_pix, lane_samp, fp)
+    k2_plain_ms, plain_tapes = once_ms(lambda: mega2.trace_tapes_plain(
         tab, lane_pix, lane_samp, fp))
-    k2_plain_ms, plain_tapes = cuda_ms(lambda: mega2.trace_tapes_plain(
-        tab, lane_pix, lane_samp, fp), repeats=1, warm=False)
     same = float((tapes == plain_tapes).all(0).float().mean())
     k2_err = float((tapes - plain_tapes).abs().max())
     del plain_tapes
-    print(f"  K2 alone: {k2_ms:.3f} ms, plain {k2_plain_ms:.1f} ms; "
-          f"{same:.6f} of lanes identical", flush=True)
+    print(f"  K2 on all {L} lanes: {same:.6f} of lanes identical to the "
+          f"plain version", flush=True)
     if same < 1 - MAX_DIFF_LANES:
         raise AssertionError("K2 differs from its plain version")
     lb_all = lane_bounces(tab, tapes)
     tape0 = tapes[:, :P].contiguous()                    # sample 0
     lb0 = lane_bounces(tab, tape0)
+    cont = row_contention(tape0)
+    print(f"  d_rep contention, sample 0: row {cont['hot_row']} takes "
+          f"{cont['hot_share']:.3f} of the hits; {cont['uniform_warp_share']:.3f}"
+          f" of the warp-bounces with a hit have one row (one atomic per "
+          f"column)", flush=True)
     tt, rays, tape0, pc, bg, g = replay_inputs(sc_np, meta, tab, fp,
                                                pix_all, 0, tape0, dev)
-    k3_ms, out = cuda_ms(lambda: rc.replay_fwd_cuda(
-        tt, tt.rep.detach(), rays, tape0, pc, 0, bg, t_min=fp.t_min))
+    out = rc.replay_fwd_cuda(tt, tt.rep.detach(), rays, tape0, pc, 0, bg,
+                             t_min=fp.t_min)
     with torch.no_grad():
-        k3_plain_ms, plain = cuda_ms(lambda: rp.replay_plain(
-            tt, rays, tape0, pc, 0, bg, t_min=fp.t_min), repeats=1,
-            warm=False)
+        k3_plain_ms, plain = once_ms(lambda: rp.replay_plain(
+            tt, rays, tape0, pc, 0, bg, t_min=fp.t_min))
     k3_st = compare(out.cpu().numpy(), plain.cpu().numpy(),
                     f"K3 sample 0, all {P} pixels")
-    k4_ms, _ = cuda_ms(lambda: rc.replay_bwd_cuda(
-        tt, tt.rep.detach(), rays, tape0, pc, 0, bg, g, t_min=fp.t_min))
     rep = tt.rep.detach().clone().requires_grad_(True)
     rays_p = rays.clone().requires_grad_(True)
     out_p = rp.replay_plain(tt._replace(rep=rep), rays_p, tape0, pc, 0, bg,
                             t_min=fp.t_min)
-    k4_plain_ms, _ = cuda_ms(lambda: torch.autograd.grad(
-        out_p, (rep, rays_p), g, allow_unused=True), repeats=1, warm=False)
+    k4_plain_ms, _ = once_ms(lambda: torch.autograd.grad(
+        out_p, (rep, rays_p), g, allow_unused=True))
     del out_p, rep, rays_p
-    print(f"  K3 alone: {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms; K4 "
-          f"alone: {k4_ms:.3f} ms, plain (autograd backward) "
-          f"{k4_plain_ms:.1f} ms; per launch of {P} lanes; lane-bounces "
-          f"{lb0} (sample 0), {lb_all} (all samples)", flush=True)
+    dev_ms = {
+        "mega2_trace": device_ms(lambda: mega2.trace_tapes_cuda(
+            tab, lane_pix, lane_samp, fp), "mega2_trace_kernel"),
+        "replay_fwd": device_ms(lambda: rc.replay_fwd_cuda(
+            tt, tt.rep.detach(), rays, tape0, pc, 0, bg, t_min=fp.t_min),
+            "replay_fwd_kernel"),
+        "replay_bwd": device_ms(lambda: rc.replay_bwd_cuda(
+            tt, tt.rep.detach(), rays, tape0, pc, 0, bg, g, t_min=fp.t_min),
+            "replay_bwd_kernel"),
+    }
+    print("  device ms per launch (torch.profiler): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in dev_ms.items()) + f"; plain versions "
+        f"(CUDA events, one call): K2 {k2_plain_ms:.1f}, K3 "
+        f"{k3_plain_ms:.1f}, K4 (autograd backward) {k4_plain_ms:.1f}; "
+        f"lane-bounces {lb0} (sample 0), {lb_all} (all samples)",
+        flush=True)
     sub = pix_all[::STRIDE].contiguous()
     k4_st = grad_check(*replay_inputs(
         sc_np, meta, tab, fp, sub, 0,
@@ -485,19 +532,18 @@ def phase_train(dev, card: str) -> dict:
 
     n_geo = table_bytes(tab)
     n_tt = nbytes(tt.rep, tt.med, tt.perm, tt.vec, tt.texels, tt.img_dims)
-    L = P * spp
     recs = {
         "mega2_trace": dict(
             launches=launches[0], max_abs_err=k2_err,
-            ms=k2_ms, plain_ms=k2_plain_ms,
+            ms=dev_ms["mega2_trace"], plain_ms=k2_plain_ms,
             bound=bound(n_geo + L * (4 + 4 + 4 * K), lb_all * pair_ops(tab))),
         "replay_fwd": dict(
-            launches=launches[1], max_abs_err=k3_st["max_abs"], ms=k3_ms,
-            plain_ms=k3_plain_ms,
+            launches=launches[1], max_abs_err=k3_st["max_abs"],
+            ms=dev_ms["replay_fwd"], plain_ms=k3_plain_ms,
             bound=bound(n_tt + P * (28 + 4 * K + 4 + 12), lb0 * OPS_REPLAY)),
         "replay_bwd": dict(
             launches=launches[2], max_abs_err=k4_st["max_abs"],
-            ms=k4_ms, plain_ms=k4_plain_ms,
+            ms=dev_ms["replay_bwd"], plain_ms=k4_plain_ms,
             bound=bound(n_tt + nbytes(tt.rep)
                         + P * (28 + 4 * K + 4 + 12 + 28 + 12),
                         lb0 * OPS_REPLAY_BWD)),

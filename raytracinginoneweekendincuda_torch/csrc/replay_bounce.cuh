@@ -7,16 +7,18 @@
 // trace-time jax.vjp of that function; here every forward stage has its
 // hand-written adjoint beside it:
 //
-//   winner row read          row = rep + idx * REP_COLS  | atomicAdd (kernel)
-//   sphere re-intersection   sphere_fwd                  | sphere_bwd
+//   winner row read          row = rep + idx * REP_COLS  | atomicAdd (K4)
+//   sphere re-intersection   sphere_fwd, sphere_t        | sphere_bwd
 //   quad re-intersection     quad_fwd                    | quad_bwd
 //   medium t                 medium_fwd                  | medium_bwd
-//   hit point, normal        record_fwd                  | record_bwd
-//   checker                  (no derivative in p)        | texture_bwd
-//   Perlin marble            noise_grad (value + grad)   | texture_bwd
+//   hit point, normal        record_fwd                  | in bounce_bwd
+//   checker                  texture_fwd (no derivative  | texture_bwd
+//                            in the hit point)
+//   Perlin marble            texture_fwd, turb_grad      | texture_bwd
 //   image texel              image_fwd (integer index)   | none
-//   miss / emission          emit_fwd                    | emit_bwd
-//   scatter, five materials  scatter_fwd                 | scatter_bwd
+//   miss / emission          emit_fwd                    | in bounce_bwd
+//   scatter, five materials  scatter_fwd                 | scatter_bwd,
+//                                                          unit_dir_bwd
 //
 // The forward follows ops/replay.py::_replay_bounce op for op, in the same
 // association order, and is compiled with --fmad=false: PyTorch's
@@ -163,7 +165,7 @@ __device__ __forceinline__ float turb_grad(const Params& p, int table,
 
 struct Rec {
   // winner
-  int win, idx;
+  int idx;
   bool hit, kind_q, kind_m;
   int m;                       // medium index when kind_m
   // sphere
@@ -173,14 +175,14 @@ struct Rec {
   bool pos, apos, use1;
   // quad
   V3 nq;
-  float num, den_s, t_quad;
+  float num, den_s;
   bool dok;
   // medium (the winner's): sphere boundary
   V3 ocm;
   float bm, ccm, discm, sqm;
   bool posm;
   // medium: box boundary
-  float c2, s2, o1, o2, o3, e1, e2, e3, iv1, iv2, iv3;
+  float c2, s2, o1, o2, o3, iv1, iv2, iv3;
   float ta[3], tb[3], mn[3], mx12, t0m, inner, hit_dm, ray_len;
   // record
   float t, t_safe, inv_rad;
@@ -244,8 +246,7 @@ __device__ __forceinline__ float quad_fwd(const float* row, const State& s,
   r.dok = fabsf(denom) >= mega2::EPS8;
   r.den_s = r.dok ? denom : 1.0f;
   r.num = d_plane - (s.o.x * r.nq.x + s.o.y * r.nq.y + s.o.z * r.nq.z);
-  r.t_quad = r.num / r.den_s;
-  return r.t_quad;
+  return r.num / r.den_s;
 }
 
 __device__ __forceinline__ float medium_fwd(const Params& p, const State& s,
@@ -263,12 +264,12 @@ __device__ __forceinline__ float medium_fwd(const Params& p, const State& s,
     r.o1 = r.c2 * pox - r.s2 * poz;
     r.o2 = poy;
     r.o3 = r.s2 * pox + r.c2 * poz;
-    r.e1 = r.c2 * s.d.x - r.s2 * s.d.z;
-    r.e2 = s.d.y;
-    r.e3 = r.s2 * s.d.x + r.c2 * s.d.z;
-    r.iv1 = 1.0f / r.e1;
-    r.iv2 = 1.0f / r.e2;
-    r.iv3 = 1.0f / r.e3;
+    const float e1 = r.c2 * s.d.x - r.s2 * s.d.z;
+    const float e2 = s.d.y;
+    const float e3 = r.s2 * s.d.x + r.c2 * s.d.z;
+    r.iv1 = 1.0f / e1;
+    r.iv2 = 1.0f / e2;
+    r.iv3 = 1.0f / e3;
     const float oo[3] = {r.o1, r.o2, r.o3};
     const float iv[3] = {r.iv1, r.iv2, r.iv3};
 #pragma unroll
@@ -476,7 +477,6 @@ __device__ __forceinline__ void scatter_fwd(const Params& p, const State& s,
 __device__ __forceinline__ bool bounce_fwd(const Params& p, int win,
                                            float tm, uint32_t pix_ctr, int k,
                                            State& s, Rec& r, float dacc[3]) {
-  r.win = win;
   r.hit = win >= 0;
   r.kind_m = p.n_media > 0 && win >= p.med_base;
   r.kind_q = win >= p.S && !r.kind_m;

@@ -161,8 +161,8 @@ extern "C" int replay_bwd_launch(const replay::Params* params,
   return (int)cudaGetLastError();
 }
 
-extern "C" int replay_bwd_params_size() {
-  return (int)sizeof(replay::Params);
-}
+// sizeof(replay::Params), so the host can check its mirror of the struct.
+extern "C" int replay_params_size() { return (int)sizeof(replay::Params); }
 
+// The deepest replay the backward takes (replay::KMAX).
 extern "C" int replay_bwd_kmax() { return replay::KMAX; }

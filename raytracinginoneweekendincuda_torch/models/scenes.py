@@ -272,7 +272,7 @@ def final_scene(seed: int = 1984, image_path: str | None = None) -> SceneDesc:
     return desc
 
 
-_BUILDERS = {
+_FACTORIES = {
     0: bouncing_spheres,
     1: checkered_spheres,
     2: earth,
@@ -288,7 +288,7 @@ _BUILDERS = {
 
 def build_scene(scene_id: int, **kw) -> SceneDesc:
     """Scene factory keyed by the reference's sceneId (kernel.cu:578-589)."""
-    return _BUILDERS[scene_id](**kw)
+    return _FACTORIES[scene_id](**kw)
 
 
 def book1_final(seed: int = 1984) -> SceneDesc:

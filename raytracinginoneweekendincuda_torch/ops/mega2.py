@@ -957,7 +957,7 @@ def render_mega2(tab: Mega2Tables, fp: FrameParams) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# K2: the winner-tape trace (plain version, CUDA wrapper, driver)
+# K2: the winner-tape trace (plain version, CUDA wrapper, mega2_tapes)
 
 
 def trace_tapes_plain(tab: Mega2Tables, pix: torch.Tensor, samp: torch.Tensor,

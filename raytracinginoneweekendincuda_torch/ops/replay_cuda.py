@@ -45,10 +45,9 @@ def _load(name: str, entry: str, argtypes: list):
     fn = getattr(lib, entry)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    size = getattr(lib, "replay_params_size" if name == "replay_fwd"
-                   else "replay_bwd_params_size")
-    size.argtypes, size.restype = [], ctypes.c_int
-    if size() != ctypes.sizeof(_Params):
+    lib.replay_params_size.argtypes = []
+    lib.replay_params_size.restype = ctypes.c_int
+    if lib.replay_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError("replay::Params and its ctypes mirror differ")
     return lib, record
 
@@ -64,8 +63,12 @@ def load_fwd_kernel():
 
 def load_bwd_kernel():
     """Build (at first use) and load K4; returns (CDLL, build record)."""
-    return _load("replay_bwd", "replay_bwd_launch",
-                 [ctypes.POINTER(_Params), _P, _P, _P, _P, _P, _P, _P, _P])
+    lib, record = _load("replay_bwd", "replay_bwd_launch",
+                        [ctypes.POINTER(_Params), _P, _P, _P, _P, _P, _P,
+                         _P, _P])
+    lib.replay_bwd_kmax.argtypes = []
+    lib.replay_bwd_kmax.restype = ctypes.c_int
+    return lib, record
 
 
 def _params(tt: ReplayTables, rep, bg, n: int, K: int, sample: int,
@@ -143,7 +146,6 @@ def replay_bwd_cuda(tt: ReplayTables, rep, rays, tape, pix_ctr, sample: int,
             or g.device != rays.device:
         raise ValueError("g must be f32 [N, 3] on the rays' device")
     lib, _ = load_bwd_kernel()
-    lib.replay_bwd_kmax.restype = ctypes.c_int
     if K > lib.replay_bwd_kmax():
         raise ValueError(f"the replay backward keeps at most "
                          f"{lib.replay_bwd_kmax()} bounces, got {K}")

@@ -31,8 +31,7 @@ import torch
 
 from ..core.camera import CameraParams
 from ..ops.mega2 import (
-    frame_params, mega2_kernel_id_space, pack_mega2_tables, tape_lanes,
-    trace_tapes,
+    frame_params, mega2_kernel_id_space, mega2_tapes, pack_mega2_tables,
 )
 from ..ops.raygen import generate_rays
 from ..ops.replay import replay_table
@@ -130,13 +129,14 @@ def make_train_step_mega2(scene: SceneArrays, meta: SceneMeta,
         # phase 1: winner tapes from the detached parameters (kernel rows)
         sc_np = merge_params(scene, params_to_numpy(params))
         tab = pack_mega2_tables(sc_np, meta, dev)
-        fp = frame_params(sc_np, cfg)
+        t_min = frame_params(sc_np, cfg).t_min
+        mark("pack")
+        tapes = mega2_tapes(sc_np, meta, pix, spp, width=W, height=H,
+                            max_bounces=cfg.max_bounces, t_min=cfg.t_min,
+                            seed=cfg.seed, id_space="kernel", device=dev,
+                            tab=tab)                     # [spp, K, B]
         pix = torch.as_tensor(np.asarray(pix, np.int32), device=dev)
         B = pix.shape[0]
-        mark("pack")
-        lane_pix, lane_samp = tape_lanes(pix, spp)
-        tapes = trace_tapes(tab, lane_pix, lane_samp, fp)
-        tapes = tapes.reshape(cfg.max_bounces, spp, B)
         mark("trace")
 
         # phase 2: the loss through the replay, its gradient, the update
@@ -149,8 +149,8 @@ def make_train_step_mega2(scene: SceneArrays, meta: SceneMeta,
         for s in range(spp):
             o, d, tm, pc = generate_rays(sc.camera, pix, s, W, H, cfg.seed)
             rays = torch.cat([o, d, tm[:, None]], dim=1)
-            img = img + replay(tt, rays, tapes[:, s], pc, s,
-                               sc.camera.background, t_min=fp.t_min)
+            img = img + replay(tt, rays, tapes[s], pc, s,
+                               sc.camera.background, t_min=t_min)
         diff = img / spp - target
         loss = (diff * diff).sum() / (3.0 * B)
         mark("forward")

@@ -320,7 +320,7 @@ def _pad_to(n: int, multiple: int) -> int:
     return -(-n // multiple) * multiple
 
 
-def cached_pack(cache: dict, scene: SceneArrays, tag: str, builder,
+def cached_pack(cache: dict, scene: SceneArrays, tag: str, make,
                 max_entries: int = 16):
     """Host-side packed-table cache keyed on the IDENTITY of EVERY array
     leaf of the scene (plus ``tag``).
@@ -339,7 +339,7 @@ def cached_pack(cache: dict, scene: SceneArrays, tag: str, builder,
     hit = cache.get(key)
     if hit is not None and all(a is b for a, b in zip(hit[0], leaves)):
         return hit[1]
-    val = builder()
+    val = make()
     if len(cache) > max_entries:
         cache.clear()
     cache[key] = (leaves, val)

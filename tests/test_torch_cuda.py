@@ -102,7 +102,6 @@ def _replay_case(name, dev, K=8):
 
 
 def _grads(probes, case, fn, wgt):
-    rep_leaf = None
     rays = case["rays"].clone().requires_grad_(True)
     bg = case["bg"].clone().requires_grad_(True)
     from raytracinginoneweekendincuda_torch.ops import replay as trp

@@ -8,8 +8,30 @@ import torch
 
 import torch_render_cases as cases
 from raytracinginoneweekendincuda_torch.ops import mega2
+from raytracinginoneweekendincuda_tpu.models import scenes as jscenes
+from raytracinginoneweekendincuda_tpu.ops.render import render as jrender
+from raytracinginoneweekendincuda_tpu.scene.compiler import (
+    compile_scene as jcompile,
+)
+from raytracinginoneweekendincuda_tpu.utils.config import (
+    RenderConfig as JConfig,
+)
 
 SCENES = (0, 1, 4, 6, 7, 8)
+
+
+def jax_reference(sid: int) -> np.ndarray:
+    """The JAX package's frame at `cases.small_case`'s config: ``mega2``,
+    or ``bruteforce`` for scene 9 (same golden hash, ~100x faster in
+    interpret mode)."""
+    _, _, cfg = cases.small_case(sid)
+    scene, meta = jcompile(jscenes.build_scene(sid), cfg.width, cfg.height,
+                           dtype=np.float32)
+    jcfg = JConfig(width=cfg.width, height=cfg.height,
+                   samples_per_pixel=cfg.samples_per_pixel,
+                   rays_per_batch=cfg.rays_per_batch,
+                   engine="bruteforce" if sid == 9 else "mega2")
+    return np.asarray(jrender(scene, meta, jcfg))
 
 
 @pytest.fixture(scope="module")
@@ -18,7 +40,7 @@ def jax_ref():
 
     def get(sid):
         if sid not in cache:
-            cache[sid] = cases.jax_reference(sid)
+            cache[sid] = jax_reference(sid)
         return cache[sid]
     return get
 

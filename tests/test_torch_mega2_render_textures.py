@@ -5,6 +5,7 @@ reasons: ``tests/torch_render_cases.py``."""
 import pytest
 
 import torch_render_cases as cases
+from test_torch_mega2_render import jax_reference
 
 SCENES = (2, 3, 5, 9)
 
@@ -15,7 +16,7 @@ def jax_ref():
 
     def get(sid):
         if sid not in cache:
-            cache[sid] = cases.jax_reference(sid)
+            cache[sid] = jax_reference(sid)
         return cache[sid]
     return get
 

@@ -1,16 +1,62 @@
 """PyTorch port: the replay forward (K3's plain version,
 ``ops/replay.replay_plain``) against the JAX package's Pallas replay
 (``replay_pallas``, interpret mode) on the same tape, rays and counters at
-16x12, with the bounds of ``tests/test_pallas_replay.py``."""
+16x12, with the bounds of ``tests/test_pallas_replay.py``.
 
+`jax_case` and `port_replay` also serve the other replay test files:
+`jax_case` gives the JAX package's inputs of ``tests/test_pallas_replay.py``
+(scene compiled in f32, rays of sample 0, the XLA ``generate_tape`` tape in
+global ids) and the same inputs as the port's tensors."""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from raytracinginoneweekendincuda_torch.models import scenes as tscenes
+from raytracinginoneweekendincuda_torch.ops import mega2 as tmega2
+from raytracinginoneweekendincuda_torch.ops import replay as trp
+from raytracinginoneweekendincuda_torch.scene.compiler import (
+    compile_scene as tcompile,
+)
 from raytracinginoneweekendincuda_tpu.models import scenes as jscenes
+from raytracinginoneweekendincuda_tpu.ops import replay as rp
 from raytracinginoneweekendincuda_tpu.ops.pallas_replay import replay_pallas
-from torch_replay_cases import T_MIN, jax_case, port_replay
+from raytracinginoneweekendincuda_tpu.ops.raygen import generate_rays
+from raytracinginoneweekendincuda_tpu.scene.compiler import (
+    compile_scene as jcompile,
+)
+from torch_probe_scenes import H, SEED, T_MIN, W
+
+
+def jax_case(jdesc, tdesc, k, w=W, h=H):
+    """(jax inputs, port inputs) for one scene at ``k`` bounces."""
+    js, jm = jcompile(jdesc, w, h, dtype=np.float32)
+    js = jax.tree.map(jnp.asarray, js)
+    pix = jnp.arange(w * h, dtype=jnp.int32)
+    o, d, t, pc = generate_rays(js.camera, pix, jnp.uint32(0), w, h, SEED)
+    tape, _ = rp.generate_tape(js, jm, o, d, t, pc, jnp.uint32(0),
+                               max_bounces=k, t_min=T_MIN)
+    ts, tm = tcompile(tdesc, w, h, dtype=np.float32)
+    rays = torch.from_numpy(np.concatenate(
+        [np.asarray(o), np.asarray(d), np.asarray(t)[:, None]], axis=1))
+    port = dict(scene=ts, meta=tm, rays=rays,
+                tape=torch.from_numpy(np.array(tape, np.int32)),
+                pix_ctr=torch.from_numpy(np.array(pc).view(np.int32)),
+                bg=torch.from_numpy(np.array(ts.camera.background)))
+    return (js, jm, tape, o, d, t, pc), port
+
+
+def port_replay(port, scene=None, rays=None, bg=None):
+    """``replay_plain`` on the port inputs (global ids); ``scene`` / ``rays``
+    / ``bg`` override the case's (e.g. with tensors that need grad)."""
+    scene = port["scene"] if scene is None else scene
+    tab = tmega2.pack_mega2_tables(port["scene"], port["meta"], "cpu")
+    tt = trp.replay_table(scene, port["meta"], tab)
+    return trp.replay_plain(
+        tt, port["rays"] if rays is None else rays, port["tape"],
+        port["pix_ctr"], 0, port["bg"] if bg is None else bg, t_min=T_MIN)
 
 
 def _both(sid, k):

@@ -17,7 +17,7 @@ from raytracinginoneweekendincuda_tpu.ops import replay as rp
 from torch_probe_scenes import (
     H, W, marble_probe, media_probe, port_trace_case, port_trace_replay,
 )
-from torch_replay_cases import T_MIN, jax_case, port_replay
+from test_torch_replay import T_MIN, jax_case, port_replay
 
 K = 2
 EPS = 1e-3

@@ -10,7 +10,7 @@ import pytest
 from raytracinginoneweekendincuda_torch.models import scenes as tscenes
 from raytracinginoneweekendincuda_tpu.models import scenes as jscenes
 from raytracinginoneweekendincuda_tpu.ops.pallas_replay import replay_pallas
-from torch_replay_cases import T_MIN, jax_case, port_replay
+from test_torch_replay import T_MIN, jax_case, port_replay
 
 K = 2
 

@@ -1,8 +1,9 @@
-"""Shared cases of the PyTorch port's render tests (not a test module).
+"""Shared cases of the PyTorch port's render tests (not a test module;
+imports only the port).
 
 The plain PyTorch render (``--device cpu``) against the JAX package's
-``mega2`` engine (Pallas interpret mode) at 16x8@2, with the bounds of
-``tests/test_mega2.py``:
+``mega2`` engine (Pallas interpret mode; the test files call it) at
+16x8@2, with the bounds of ``tests/test_mega2.py``:
 
 * scene 0 (moving spheres + lens): at most 6 pixels with max diff > 1e-5;
 * scenes 1, 4, 6, 7, 8: at most 2 such pixels;
@@ -20,11 +21,10 @@ import hashlib
 
 import numpy as np
 
+from raytracinginoneweekendincuda_torch.models import scenes
 from raytracinginoneweekendincuda_torch.ops.render import render as trender
-from raytracinginoneweekendincuda_tpu.models import scenes
-from raytracinginoneweekendincuda_tpu.ops.render import render as jrender
-from raytracinginoneweekendincuda_tpu.scene.compiler import compile_scene
-from raytracinginoneweekendincuda_tpu.utils.config import RenderConfig
+from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
+from raytracinginoneweekendincuda_torch.utils.config import RenderConfig
 
 MAX_BAD = {0: 6, 1: 2, 4: 2, 6: 2, 7: 2, 8: 2}
 NOISE_IMAGE = (2, 3, 5, 9)
@@ -45,12 +45,6 @@ def small_case(sid: int):
     cfg = RenderConfig(width=W, height=H, samples_per_pixel=spp,
                        rays_per_batch=512)
     return scene, meta, cfg
-
-
-def jax_reference(sid: int) -> np.ndarray:
-    scene, meta, cfg = small_case(sid)
-    engine = "bruteforce" if sid == 9 else "mega2"
-    return np.asarray(jrender(scene, meta, cfg.with_(engine=engine)))
 
 
 def port_render(sid: int) -> np.ndarray:
