@@ -524,6 +524,14 @@ def phase_train(dev, card: str) -> dict:
         f"{k3_plain_ms:.1f}, K4 (autograd backward) {k4_plain_ms:.1f}; "
         f"lane-bounces {lb0} (sample 0), {lb_all} (all samples)",
         flush=True)
+    step_ms = float(np.mean(walls))
+    k34 = [spp * dev_ms["replay_fwd"], spp * dev_ms["replay_bwd"]]
+    pack_ms, k2_ms = float(np.mean(split["pack"])), dev_ms["mega2_trace"]
+    print(f"  per step: pack {pack_ms:.2f}, K2 {k2_ms:.2f}, K3 x {spp} "
+          f"{k34[0]:.2f}, K4 x {spp} {k34[1]:.2f}, the rest (derive, raygen, "
+          f"autograd glue, Adam, host gaps) "
+          f"{step_ms - pack_ms - k2_ms - sum(k34):.2f} of {step_ms:.2f} ms",
+          flush=True)
     sub = pix_all[::STRIDE].contiguous()
     k4_st = grad_check(*replay_inputs(
         sc_np, meta, tab, fp, sub, 0,
