@@ -84,8 +84,8 @@ MAX_DIFF_LANES = 0.001    # K2: at most 0.1% of lanes may differ
 GRAD_REL = 1e-3           # K4: d_rep rel-L2, and the per-lane d_rays /
                           # d_bg tolerance relative to the largest entry
 
-# The card's peaks for the bounds (on-chip-measurement guide, H100 SXM at
-# 700 W): FP32 outside the tensor cores, device memory.
+# The card's peaks for the bounds (H100 SXM at 700 W): FP32 outside the
+# tensor cores, device memory.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # FP32 operations (each add, multiply, compare, divide, sqrt one op) per
