@@ -32,9 +32,12 @@ holding every kernel against its plain PyTorch version.  Phases:
 9. the training step at full width: scene 0 at 640x360, spp 8, K 8
    (1.84 M lanes), Adam lr 1e-2, one warm-up and three timed steps, split
    into phases with CUDA events, with the K2 / K3 / K4 launch counts of
-   that run; K4 against autograd of ``replay_plain`` on every 97th pixel
-   of sample 0; each kernel timed alone against its plain version at the
-   step's shapes; then the scene-4 loss-decrease check (12x8, 4 steps).
+   that run; the device's busy share of a step (torch.profiler's kernel
+   time over the unprofiled step); K2 against its plain version on all
+   lanes, K3 and K4 against ``replay_plain`` and its autograd on all of
+   sample 0's lanes (the shape the step launches them at), K4 also on
+   every 97th pixel; each kernel timed alone against its plain version;
+   then the scene-4 loss-decrease check (12x8, 4 steps).
 
 Prints the kernel record and the card on lines of their own, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, before that
@@ -189,11 +192,10 @@ def once_ms(fn):
     return a.elapsed_time(b), out
 
 
-def device_ms(fn, kernel: str, repeats: int = 5) -> float:
-    """Mean device milliseconds of the CUDA kernel named ``kernel`` over
-    ``repeats`` calls of ``fn``, from torch.profiler (the kernel alone,
-    without the wrapper's host time that CUDA events around a short
-    launch would include)."""
+def device_events(fn, repeats: int) -> list:
+    """(name, device microseconds, launches) of every kernel that
+    ``repeats`` calls of ``fn`` ran, from torch.profiler, after one
+    warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -202,11 +204,20 @@ def device_ms(fn, kernel: str, repeats: int = 5) -> float:
         for _ in range(repeats):
             fn()
         torch.cuda.synchronize()
-    evs = [ev for ev in prof.key_averages() if kernel in ev.key]
+    return [(ev.key, ev.self_device_time_total, ev.count)
+            for ev in prof.key_averages()
+            if "CUDA" in str(ev.device_type) and ev.self_device_time_total > 0]
+
+
+def device_ms(fn, kernel: str, repeats: int = 5) -> float:
+    """Mean device milliseconds of the CUDA kernel named ``kernel`` over
+    ``repeats`` calls of ``fn`` (the kernel alone, without the wrapper's
+    host time that CUDA events around a short launch would include)."""
+    evs = [(us, n) for key, us, n in device_events(fn, repeats)
+           if kernel in key]
     if not evs:
         raise AssertionError(f"the profiler saw no {kernel} launch")
-    us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in evs)
-    return us / 1e3 / sum(ev.count for ev in evs)
+    return sum(us for us, _ in evs) / 1e3 / sum(n for _, n in evs)
 
 
 LOADERS = {"mega2_render": mega2.load_kernel,
@@ -348,7 +359,9 @@ def phase_trace(dev) -> None:
 
 
 def grad_check(tt, rays, tape, pc, bg, g, t_min, what: str) -> dict:
-    """K4 against autograd of replay_plain on the same inputs."""
+    """K4 against autograd of replay_plain on the same inputs; the record
+    also holds the time of the plain version's backward (``plain_ms``,
+    CUDA events, one call)."""
     d_rep, d_rays, d_bg = rc.replay_bwd_cuda(tt, tt.rep.detach(), rays, tape,
                                              pc, 0, bg, g, t_min=t_min)
     rep = tt.rep.detach().clone().requires_grad_(True)
@@ -356,9 +369,11 @@ def grad_check(tt, rays, tape, pc, bg, g, t_min, what: str) -> dict:
     bg_p = bg.expand(rays.shape[0], 3).clone().requires_grad_(True)
     out = rp.replay_plain(tt._replace(rep=rep), rays_p, tape, pc, 0, bg_p,
                           t_min=t_min)
-    (out * g).sum().backward()
-    zero = lambda x, like: torch.zeros_like(like) if x is None else x
-    want = (zero(rep.grad, rep), zero(rays_p.grad, rays), zero(bg_p.grad, bg_p))
+    plain_ms, grads = once_ms(lambda: torch.autograd.grad(
+        out, (rep, rays_p, bg_p), g, allow_unused=True))
+    want = tuple(torch.zeros_like(x) if gr is None else gr
+                 for gr, x in zip(grads, (rep, rays_p, bg_p)))
+    del out, grads
     rel = float((d_rep - want[0]).norm()) / max(float(want[0].norm()), 1e-30)
     bad = []
     for got, ref in ((d_rays, want[1]), (d_bg, want[2])):
@@ -369,7 +384,7 @@ def grad_check(tt, rays, tape, pc, bg, g, t_min, what: str) -> dict:
           "max_abs": max(float((d_rep - want[0]).abs().max()),
                          float((d_rays - want[1]).abs().max())),
           "d_bg_lanes_off": bad[1], "d_rep_norm": float(want[0].norm()),
-          "d_rays_max": float(want[1].abs().max())}
+          "d_rays_max": float(want[1].abs().max()), "plain_ms": plain_ms}
     print(f"  {what}: d_rep rel-L2 {rel:.2e} (|d_rep| {st['d_rep_norm']:.3e}),"
           f" lanes off: d_rays {bad[0]:.4f} (max |d_rays| "
           f"{st['d_rays_max']:.3e}), d_bg {bad[1]:.4f}", flush=True)
@@ -468,6 +483,22 @@ def phase_train(dev, card: str) -> dict:
         raise AssertionError("the training step did not launch every kernel")
     if not np.isfinite(losses).all():
         raise AssertionError("non-finite training loss")
+    # the device's busy share: the kernel time of a profiled step (the
+    # profiler slows the host, not the kernels) over the unprofiled step
+    step_ms = float(np.mean(walls))
+    box = [state]
+
+    def one_step():
+        box[0], _ = step(box[0], pix, target)
+
+    evs = sorted(device_events(one_step, 1), key=lambda e: -e[1])
+    state = box[0]
+    busy_ms = sum(us for _, us, _ in evs) / 1e3
+    print(f"  device kernels {busy_ms:.2f} ms of the {step_ms:.2f} ms step "
+          f"(busy {busy_ms / step_ms:.3f}, idle {1 - busy_ms / step_ms:.3f}); "
+          f"{sum(n for *_, n in evs)} launches; busiest: " + ", ".join(
+              f"{key[:40]} {us / 1e3:.2f} ms x{n}" for key, us, n in evs[:6]),
+          flush=True)
 
     # the kernels alone at the step's shapes, against their plain versions
     sc_np = train.merge_params(start, train.params_to_numpy(state.params))
@@ -501,13 +532,10 @@ def phase_train(dev, card: str) -> dict:
             tt, rays, tape0, pc, 0, bg, t_min=fp.t_min))
     k3_st = compare(out.cpu().numpy(), plain.cpu().numpy(),
                     f"K3 sample 0, all {P} pixels")
-    rep = tt.rep.detach().clone().requires_grad_(True)
-    rays_p = rays.clone().requires_grad_(True)
-    out_p = rp.replay_plain(tt._replace(rep=rep), rays_p, tape0, pc, 0, bg,
-                            t_min=fp.t_min)
-    k4_plain_ms, _ = once_ms(lambda: torch.autograd.grad(
-        out_p, (rep, rays_p), g, allow_unused=True))
-    del out_p, rep, rays_p
+    # K4 on the shape the step launches it: all of sample 0's lanes
+    k4_st = grad_check(tt, rays, tape0, pc, bg, g, fp.t_min,
+                       f"K4 sample 0, all {P} pixels")
+    k4_plain_ms = k4_st["plain_ms"]
     dev_ms = {
         "mega2_trace": device_ms(lambda: mega2.trace_tapes_cuda(
             tab, lane_pix, lane_samp, fp), "mega2_trace_kernel"),
@@ -524,7 +552,6 @@ def phase_train(dev, card: str) -> dict:
         f"{k3_plain_ms:.1f}, K4 (autograd backward) {k4_plain_ms:.1f}; "
         f"lane-bounces {lb0} (sample 0), {lb_all} (all samples)",
         flush=True)
-    step_ms = float(np.mean(walls))
     k34 = [spp * dev_ms["replay_fwd"], spp * dev_ms["replay_bwd"]]
     pack_ms, k2_ms = float(np.mean(split["pack"])), dev_ms["mega2_trace"]
     print(f"  per step: pack {pack_ms:.2f}, K2 {k2_ms:.2f}, K3 x {spp} "
@@ -533,7 +560,7 @@ def phase_train(dev, card: str) -> dict:
           f"{step_ms - pack_ms - k2_ms - sum(k34):.2f} of {step_ms:.2f} ms",
           flush=True)
     sub = pix_all[::STRIDE].contiguous()
-    k4_st = grad_check(*replay_inputs(
+    grad_check(*replay_inputs(
         sc_np, meta, tab, fp, sub, 0,
         mega2.trace_tapes_cuda(tab, sub, torch.zeros_like(sub), fp), dev),
         fp.t_min, f"K4 sample 0, every {STRIDE}th pixel")

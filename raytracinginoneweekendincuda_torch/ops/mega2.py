@@ -41,7 +41,7 @@ from ..scene.compiler import (
     SceneMeta,
 )
 from ..utils.config import RenderConfig
-from .raygen import camera_tuple, generate_rays
+from .raygen import camera_tuple, generate_rays, pixel_counter
 
 CULL_C = 64        # row padding multiple of the sphere / quad / box tables
 SPH_COLS = 16      # 0:3 c0, 3:6 dc, 6 t0, 7 inv_dt, 8 rad, 9 active,
@@ -749,14 +749,10 @@ def _scatter(kind, fuzz, ior, front, is_light, n, d, a, u1, u2, u3, u4):
     return new, scattered
 
 
-def _bounce(tab, fp, o, d, tm, thr, acc, pix_ctr, samp, bounce, chunk,
-            textures: bool = True):
+def _bounce(tab, fp, o, d, tm, thr, acc, pix_ctr, samp, bounce, chunk):
     """One bounce of live rays (all [N, ...]).  Returns (o, d, thr, acc,
     alive, win) after hit -> record -> texture -> emission -> scatter;
-    ``win`` is the winner's kernel row (-1 miss, np_rows + m medium m).
-    ``textures=False`` skips checker / marble / image evaluation (the
-    trace: winners and scatter do not depend on texture values, so only
-    ``thr`` and ``acc`` differ)."""
+    ``win`` is the winner's kernel row (-1 miss, np_rows + m medium m)."""
     dev = o.device
     dx, dy, dz = d.unbind(1)
     a = dx * dx + dy * dy + dz * dz
@@ -798,7 +794,7 @@ def _bounce(tab, fp, o, d, tm, thr, acc, pix_ctr, samp, bounce, chunk,
     even = ((cells[:, 0] + cells[:, 1] + cells[:, 2]) & 1) == 0
     is_ck = tex_kind == float(TEX_CHECKER)
     tex = torch.where((is_ck & ~even)[:, None], aw[:, 17:20], tex)
-    is_nz = hit & (tex_kind == float(TEX_NOISE)) & textures
+    is_nz = hit & (tex_kind == float(TEX_NOISE))
     if bool(is_nz.any()):
         sel = is_nz.nonzero()[:, 0]
         ps, aws = p[sel], aw[sel]
@@ -811,7 +807,7 @@ def _bounce(tab, fp, o, d, tm, thr, acc, pix_ctr, samp, bounce, chunk,
                 tab, t, ps[:, 0], ps[:, 1], ps[:, 2]), turb)
         marble = 0.5 * (1.0 + torch.sin(aws[:, 23] * ps[:, 2] + 10.0 * turb))
         tex = tex.index_put((sel,), marble[:, None].expand(-1, 3))
-    is_im = hit & (tex_kind == float(TEX_IMAGE)) & textures
+    is_im = hit & (tex_kind == float(TEX_IMAGE))
     if bool(is_im.any()):
         sel = is_im.nonzero()[:, 0]
         tex = tex.index_put((sel,), _image_tex(tab, aw[sel], p[sel], ns[sel],
@@ -967,7 +963,8 @@ def trace_tapes_plain(tab: Mega2Tables, pix: torch.Tensor, samp: torch.Tensor,
     lane: ``pix`` [N] pixel ids (< 0: padding, all -1), ``samp`` [N]
     sample ids.  -1 marks a miss and every bounce after the path ended.
     ``rays`` [N, 7] (origin, direction, time) replaces the camera rays.
-    Plain PyTorch, built from ``_bounce`` with textures skipped."""
+    Plain PyTorch, built from ``_bounce`` as the render runs it (winners
+    do not depend on texture values)."""
     dev = pix.device
     K = fp.max_bounces
     N = pix.shape[0]
@@ -975,17 +972,18 @@ def trace_tapes_plain(tab: Mega2Tables, pix: torch.Tensor, samp: torch.Tensor,
     ids = (pix >= 0).nonzero()[:, 0]
     pix_v = pix[ids]
     samp_v = samp[ids].to(torch.int32)
-    o, d, tm, pix_ctr = generate_rays(fp.cam, pix_v, samp_v, fp.width,
-                                      fp.height, fp.seed)
-    if rays is not None:
+    if rays is None:
+        o, d, tm, pix_ctr = generate_rays(fp.cam, pix_v, samp_v, fp.width,
+                                          fp.height, fp.seed)
+    else:
         o, d, tm = rays[ids, 0:3], rays[ids, 3:6], rays[ids, 6]
+        pix_ctr = pixel_counter(pix_v, fp.seed)
     thr = torch.ones_like(o)
     acc = torch.zeros_like(o)
     live = ids
     for b in range(K):
         o, d, thr, acc, alive, win = _bounce(
-            tab, fp, o, d, tm, thr, acc, pix_ctr, samp_v, b, chunk,
-            textures=False)
+            tab, fp, o, d, tm, thr, acc, pix_ctr, samp_v, b, chunk)
         tape[b, live] = win.to(torch.int32)
         keep = alive.nonzero()[:, 0]
         if keep.numel() == 0:

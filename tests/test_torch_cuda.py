@@ -11,9 +11,11 @@ import pytest
 import torch
 
 import torch_texture_scenes as tex
+from raytracinginoneweekendincuda_torch.core import camera
 from raytracinginoneweekendincuda_torch.ops import mega2
 from raytracinginoneweekendincuda_torch.ops.render import finalize
 from raytracinginoneweekendincuda_torch.models import scenes
+from raytracinginoneweekendincuda_torch.scene import api
 from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
 from raytracinginoneweekendincuda_torch.utils.config import RenderConfig
 
@@ -28,7 +30,8 @@ def dev():
 
 
 def _case(sid, dev, W=32, H=16, spp=2):
-    desc = tex.SCENES[sid]() if sid in tex.SCENES else scenes.build_scene(sid)
+    desc = tex.SCENES[sid](api, camera) if sid in tex.SCENES \
+        else scenes.build_scene(sid)
     scene, meta = compile_scene(desc, W, H, dtype=np.float32)
     cfg = RenderConfig(width=W, height=H, samples_per_pixel=spp,
                        engine="mega2")

@@ -6,6 +6,7 @@ writer must write the same bytes."""
 import numpy as np
 import pytest
 
+import torch_texture_scenes as tex
 from raytracinginoneweekendincuda_torch.core import camera as tcam
 from raytracinginoneweekendincuda_torch.core import image as timage
 from raytracinginoneweekendincuda_torch.models import scenes as tscenes
@@ -47,7 +48,7 @@ def _by_hand(api, cam):
 
 
 CASES = [*[("scene", sid) for sid in range(10)], ("book1_final", None),
-         ("by_hand", None)]
+         ("by_hand", None), *[("texture", n) for n in sorted(tex.SCENES)]]
 
 
 def _desc(pkg_scenes, api, cam, kind, sid):
@@ -55,6 +56,8 @@ def _desc(pkg_scenes, api, cam, kind, sid):
         return pkg_scenes.build_scene(sid)
     if kind == "book1_final":
         return pkg_scenes.book1_final()
+    if kind == "texture":
+        return tex.SCENES[sid](api, cam)
     return _by_hand(api, cam)
 
 

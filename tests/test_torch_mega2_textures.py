@@ -7,12 +7,16 @@ import numpy as np
 import pytest
 
 import torch_texture_scenes as tex
+from raytracinginoneweekendincuda_torch.core import camera as tcam
 from raytracinginoneweekendincuda_torch.ops import mega2 as tmega2
 from raytracinginoneweekendincuda_torch.ops.render import render as trender
+from raytracinginoneweekendincuda_torch.scene import api as tapi
 from raytracinginoneweekendincuda_torch.scene.compiler import (
     compile_scene as tcompile_scene,
 )
+from raytracinginoneweekendincuda_tpu.core import camera as jcam
 from raytracinginoneweekendincuda_tpu.models import scenes
+from raytracinginoneweekendincuda_tpu.scene import api as japi
 from raytracinginoneweekendincuda_tpu.ops.render import render as jrender
 from raytracinginoneweekendincuda_tpu.scene.compiler import compile_scene
 from raytracinginoneweekendincuda_tpu.utils.config import RenderConfig
@@ -21,12 +25,14 @@ from raytracinginoneweekendincuda_tpu.utils.config import RenderConfig
 @pytest.mark.parametrize("name", sorted(tex.SCENES))
 def test_texture_gate_scene_matches_jax_mega2(name):
     W, H = 16, 8
-    # the scenes are built with the port's API; its compiler's arrays equal
-    # the JAX package's (tests/test_torch_host.py), so both renders take them
-    scene, meta = tcompile_scene(tex.SCENES[name](), W, H, dtype=np.float32)
+    # each side builds and compiles the scene with its own package
+    jscene, jmeta = compile_scene(tex.SCENES[name](japi, jcam), W, H,
+                                  dtype=np.float32)
+    scene, meta = tcompile_scene(tex.SCENES[name](tapi, tcam), W, H,
+                                 dtype=np.float32)
     cfg = RenderConfig(width=W, height=H, samples_per_pixel=2,
                        rays_per_batch=512, engine="mega2")
-    ref = np.asarray(jrender(scene, meta, cfg))
+    ref = np.asarray(jrender(jscene, jmeta, cfg))
     img = trender(scene, meta, cfg, device="cpu")
     diff = np.abs(img.astype(np.float64) - ref)
     if name == "two_noise_tables":

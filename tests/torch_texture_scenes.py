@@ -1,15 +1,11 @@
 """Texture-gate scenes of ``tests/test_mega2_textures.py`` for the PyTorch
-port's tests (not a test module; built with the port's own scene API, so
-the card's tests can use it where JAX is absent): several images, an image on a quad and on box faces, and two
-Perlin tables."""
+port's tests (not a test module): several images, an image on a quad and
+on box faces, and two Perlin tables.  Each builder takes the scene API
+module and the camera module of the package that builds it, so a test can
+build the same scene through the JAX package and through the port, and the
+card's tests can build it where JAX is absent."""
 
 import numpy as np
-
-from raytracinginoneweekendincuda_torch.core.camera import Camera
-from raytracinginoneweekendincuda_torch.scene.api import (
-    Box, DiffuseLight, ImageTexture, Lambertian, NoiseTexture, Quad,
-    SceneDesc, Sphere,
-)
 
 SKY = (0.70, 0.80, 1.00)
 
@@ -33,41 +29,45 @@ def _img_b():
     return _bytes(np.ascontiguousarray(np.stack([c, 1.0 - c, 0.5 * c], -1)))
 
 
-def two_images_and_image_on_quad() -> SceneDesc:
-    desc = SceneDesc()
+def two_images_and_image_on_quad(api, cam):
+    desc = api.SceneDesc()
     desc.add(
-        Sphere((-2.2, 0, 0), 1.0, Lambertian(ImageTexture(_img_a()))),
-        Sphere((2.2, 0, 0), 1.0, Lambertian(ImageTexture(_img_b()))),
-        Quad((-2, -2, -2), (4, 0, 0), (0, 4, 0),
-             Lambertian(ImageTexture(_img_a()))),
+        api.Sphere((-2.2, 0, 0), 1.0,
+                   api.Lambertian(api.ImageTexture(_img_a()))),
+        api.Sphere((2.2, 0, 0), 1.0,
+                   api.Lambertian(api.ImageTexture(_img_b()))),
+        api.Quad((-2, -2, -2), (4, 0, 0), (0, 4, 0),
+                 api.Lambertian(api.ImageTexture(_img_a()))),
     )
-    desc.camera = Camera(lookfrom=(0, 0, 9), lookat=(0, 0, 0), vfov=40.0,
-                         background=SKY)
+    desc.camera = cam.Camera(lookfrom=(0, 0, 9), lookat=(0, 0, 0),
+                             vfov=40.0, background=SKY)
     return desc
 
 
-def two_noise_tables() -> SceneDesc:
-    desc = SceneDesc()
+def two_noise_tables(api, cam):
+    desc = api.SceneDesc()
     desc.add(
-        Sphere((0, -1000, 0), 1000.0,
-               Lambertian(NoiseTexture(4.0, table_seed=0))),
-        Sphere((0, 2, 0), 2.0, Lambertian(NoiseTexture(2.0, table_seed=7))),
+        api.Sphere((0, -1000, 0), 1000.0,
+                   api.Lambertian(api.NoiseTexture(4.0, table_seed=0))),
+        api.Sphere((0, 2, 0), 2.0,
+                   api.Lambertian(api.NoiseTexture(2.0, table_seed=7))),
     )
-    desc.camera = Camera(lookfrom=(13, 2, 3), lookat=(0, 0, 0), vfov=20.0,
-                         background=SKY)
+    desc.camera = cam.Camera(lookfrom=(13, 2, 3), lookat=(0, 0, 0),
+                             vfov=20.0, background=SKY)
     return desc
 
 
-def image_on_box_face() -> SceneDesc:
-    desc = SceneDesc()
+def image_on_box_face(api, cam):
+    desc = api.SceneDesc()
     desc.add(
-        Box((-1, -1, -1), (1, 1, 1), Lambertian(ImageTexture(_img_a()))),
-        Quad((-3, -3, -3), (6, 0, 0), (0, 0, 6),
-             Lambertian((0.5, 0.5, 0.5))),
-        Sphere((0, 5, 2), 1.0, DiffuseLight((4.0, 4.0, 4.0))),
+        api.Box((-1, -1, -1), (1, 1, 1),
+                api.Lambertian(api.ImageTexture(_img_a()))),
+        api.Quad((-3, -3, -3), (6, 0, 0), (0, 0, 6),
+                 api.Lambertian((0.5, 0.5, 0.5))),
+        api.Sphere((0, 5, 2), 1.0, api.DiffuseLight((4.0, 4.0, 4.0))),
     )
-    desc.camera = Camera(lookfrom=(4, 3, 6), lookat=(0, 0, 0), vfov=40.0,
-                         background=SKY)
+    desc.camera = cam.Camera(lookfrom=(4, 3, 6), lookat=(0, 0, 0),
+                             vfov=40.0, background=SKY)
     return desc
 
 
