@@ -4,11 +4,14 @@
 
 Builds the port's CUDA kernels from the sources in this checkout -- K1
 (``csrc/mega2_render.cu``), K2 (``csrc/mega2_trace.cu``), K3
-(``csrc/replay_fwd.cu``) and K4 (``csrc/replay_bwd.cu``), one nvcc each,
-all started together -- and drives the port's two paths: the render (the
-CLI's ``ops/render.render``, engine ``mega2``, at the reference's headline
-config) and the training step (``parallel/train.make_train_step_mega2``),
-holding every kernel against its plain PyTorch version.  Phases:
+(``csrc/replay_fwd.cu``), K4 (``csrc/replay_bwd.cu``), K5
+(``csrc/mega_bounces.cu``) and K6 (``csrc/closest_geo.cu``), one nvcc
+each, all started together -- and drives the port's three paths: the
+render (the CLI's ``ops/render.render``, engine ``mega2``, at the
+reference's headline config), the training step
+(``parallel/train.make_train_step_mega2``) and the XLA-family engines
+(``render`` with ``wavefront_pallas`` and ``mega``), holding every kernel
+against its plain PyTorch version.  Phases:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the kernels' build times and ptxas reports;
@@ -37,7 +40,23 @@ holding every kernel against its plain PyTorch version.  Phases:
    lanes, K3 and K4 against ``replay_plain`` and its autograd on all of
    sample 0's lanes (the shape the step launches them at), K4 also on
    every 97th pixel; each kernel timed alone against its plain version;
-   then the scene-4 loss-decrease check (12x8, 4 steps).
+   then the scene-4 loss-decrease check (12x8, 4 steps);
+10. K6 against ``closest_geo_plain`` on all ten scenes, on the rays of the
+    first three iterations of a plain ``wavefront`` pool at 64x32@2
+    (``t`` bit-equal, ``prim`` equal on at least 99.9% of lanes);
+11. K5 against ``mega_bounces_plain`` on scenes 0, 1, 4, 6, 7 and 8, two
+    calls on a full 8192-lane pool (``ri`` equal on at least 99.9% of
+    lanes, ``rf`` within K1's bounds); K5 timed on scene 0's pool, the
+    main path's shape;
+12. the XLA-family path at full width: scene 0 at 1440x720@10 through
+    ``render`` with ``wavefront_pallas`` (K6) and ``mega`` (K5), best of
+    3, with the launch counts (one launch per loop iteration), the
+    kernel's device ms per launch and the device's busy share of a frame
+    (torch.profiler); both frames held against K1's ``mega2`` frame and
+    the plain ``wavefront`` frame, all on the card; K6 against its plain
+    version on the main path's first pool (131072 camera rays); scene 9
+    at 1440x720@10 through ``wavefront_pallas``, timed and held against
+    K1's frame.
 
 Prints the kernel record and the card on lines of their own, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, before that
@@ -65,10 +84,13 @@ from raytracinginoneweekendincuda_torch.models.scenes import (
 from raytracinginoneweekendincuda_torch.scene import api
 from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
 from raytracinginoneweekendincuda_torch.utils.config import RenderConfig
-from raytracinginoneweekendincuda_torch.ops import mega2
+from raytracinginoneweekendincuda_torch.ops import hit, integrator, mega
+from raytracinginoneweekendincuda_torch.ops import mega2, pallas_hit
 from raytracinginoneweekendincuda_torch.ops import replay as rp
 from raytracinginoneweekendincuda_torch.ops import replay_cuda as rc
-from raytracinginoneweekendincuda_torch.ops.raygen import generate_rays
+from raytracinginoneweekendincuda_torch.ops.raygen import (
+    camera_tuple, generate_rays,
+)
 from raytracinginoneweekendincuda_torch.ops.render import finalize, render
 from raytracinginoneweekendincuda_torch.parallel import train
 from raytracinginoneweekendincuda_torch.utils.benchmark import card_line
@@ -86,6 +108,20 @@ TRAIN = (640, 360, 8, 8)  # the training step: width, height, spp, K
 MAX_DIFF_LANES = 0.001    # K2: at most 0.1% of lanes may differ
 GRAD_REL = 1e-3           # K4: d_rep rel-L2, and the per-lane d_rays /
                           # d_bg tolerance relative to the largest entry
+# The plain ``wavefront`` frame tests spheres in the contraction form of
+# ops/hit.py (dot products of the ray with each centre), which rounds the
+# hits on scene 0's small spheres differently in f32 from K5's, K6's and
+# K1's direct form; 5.4% of its pixels then move by more than 1e-4 against
+# theirs at 1440x720@10, mean 5.8e-4 (measured on an H100 80GB HBM3 at
+# 700 W: 55,726 and 55,700 of 1,036,800 pixels against K6's and K5's
+# frames).
+MAX_FRAC_PLAIN_WF = 0.06
+POOL = (64, 32, 2, 3)     # K6 on a plain wavefront pool: w, h, spp,
+                          # iterations
+MEGA_SCENES = (0, 1, 4, 6, 7, 8)   # the scenes K5 renders (no Perlin or
+                                   # image textures)
+MEGA_FRAME = (64, 32, 4)  # K5's 8192-lane pool: the first refill of a
+                          # frame of this size
 
 # The card's peaks for the bounds (H100 SXM at 700 W): FP32 outside the
 # tensor cores, device memory.
@@ -99,6 +135,12 @@ PEAK_BYTES = 3.35e12
 # record, scatter) 160, its adjoint with the two recomputes 570.
 OPS_SPHERE, OPS_QUAD, OPS_BOX, OPS_MEDIUM, OPS_BOUNCE = 26, 16, 36, 40, 100
 OPS_REPLAY, OPS_REPLAY_BWD = 160, 570
+# FP32 ops per pair test of csrc/xla_pair.cuh (K5, K6): a sphere through
+# the sign of its discriminant (moving centre, oc, half-b, cc, disc) 28 --
+# the roots follow only where it is positive -- and a quad (plane hit,
+# interior test, compares) 39; the rest of a K5 bounce (record, texture,
+# RNG, scatter) 120, a medium 45.
+OPS_XSPHERE, OPS_XQUAD, OPS_XBOUNCE, OPS_XMEDIUM = 28, 39, 120, 45
 
 
 def synthetic_texture() -> np.ndarray:
@@ -143,21 +185,22 @@ def image_of(fb: torch.Tensor, spp: int) -> np.ndarray:
     return finalize(fb, spp, gamma=True, out_u8=False).cpu().numpy()
 
 
-def compare(k1: np.ndarray, plain: np.ndarray, what: str) -> dict:
-    """Per-pixel comparison of a kernel's [P, 3] image (or radiance) with
-    its plain version's, checked against the bounds above."""
+def compare(k1: np.ndarray, plain: np.ndarray, what: str,
+            unit: str = "pixels", max_frac: float = MAX_FRAC_ABOVE) -> dict:
+    """Per-row comparison of a kernel's [P, C] image (or radiance, or ray
+    state) with its plain version's, checked against the bounds above."""
     diff = np.abs(k1.astype(np.float64) - plain.astype(np.float64))
     px = diff.max(axis=1)
     stats = {"pixels": int(px.shape[0]),
              "identical": int((px == 0).sum()),
              "above_1e-4": int((px > TOL_ABOVE).sum()),
              "mean_abs": float(diff.mean()), "max_abs": float(diff.max())}
-    print(f"  {what}: {stats['identical']}/{stats['pixels']} pixels "
+    print(f"  {what}: {stats['identical']}/{stats['pixels']} {unit} "
           f"bit-identical, {stats['above_1e-4']} above 1e-4, mean |diff| "
           f"{stats['mean_abs']:.3e}, max {stats['max_abs']:.3e}", flush=True)
     if not np.isfinite(k1).all():
         raise AssertionError(f"{what}: the kernel produced non-finite values")
-    if stats["above_1e-4"] > MAX_FRAC_ABOVE * stats["pixels"] \
+    if stats["above_1e-4"] > max_frac * stats["pixels"] \
             or stats["mean_abs"] >= MAX_MEAN:
         raise AssertionError(f"{what}: the kernel disagrees with the plain "
                              f"version")
@@ -178,6 +221,16 @@ def timed(fn, repeats: int = 3):
     return best, out
 
 
+def once_s(fn):
+    """(seconds, result) of one call of ``fn``, ending in
+    torch.cuda.synchronize()."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
 def once_ms(fn):
     """(milliseconds of one call of ``fn`` by CUDA events, its result):
     for the plain versions, which run long enough that the host's share
@@ -195,7 +248,9 @@ def once_ms(fn):
 def device_events(fn, repeats: int) -> list:
     """(name, device microseconds, launches) of every kernel that
     ``repeats`` calls of ``fn`` ran, from torch.profiler, after one
-    warm-up call."""
+    warm-up call.  Sums the profiler's raw device records by name
+    (``key_averages`` takes minutes over the ~340 k launches of a full
+    ``mega`` frame)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -204,9 +259,12 @@ def device_events(fn, repeats: int) -> list:
         for _ in range(repeats):
             fn()
         torch.cuda.synchronize()
-    return [(ev.key, ev.self_device_time_total, ev.count)
-            for ev in prof.key_averages()
-            if "CUDA" in str(ev.device_type) and ev.self_device_time_total > 0]
+    sums = {}
+    for ev in prof.profiler.kineto_results.events():
+        if "CUDA" in str(ev.device_type()) and ev.duration_ns() > 0:
+            us, n = sums.get(ev.name(), (0.0, 0))
+            sums[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    return [(name, us, n) for name, (us, n) in sums.items()]
 
 
 def device_ms(fn, kernel: str, repeats: int = 5) -> float:
@@ -223,7 +281,9 @@ def device_ms(fn, kernel: str, repeats: int = 5) -> float:
 LOADERS = {"mega2_render": mega2.load_kernel,
            "mega2_trace": mega2.load_trace_kernel,
            "replay_fwd": rc.load_fwd_kernel,
-           "replay_bwd": rc.load_bwd_kernel}
+           "replay_bwd": rc.load_bwd_kernel,
+           "mega_bounces": mega.load_kernel,
+           "closest_geo": pallas_hit.load_kernel}
 
 
 def build_kernels() -> dict:
@@ -398,8 +458,7 @@ def grad_check(tt, rays, tape, pc, bg, g, t_min, what: str) -> dict:
 
 def replay_inputs(scene, meta, tab, fp, pix, samp: int, tape, dev):
     tt = rp.replay_table(scene, meta, tab,
-                         kernel_space=mega2.mega2_kernel_id_space(tab, meta),
-                         device=dev)
+                         kernel_space=mega2.mega2_kernel_id_space(tab, meta))
     o, d, tm, pc = generate_rays(fp.cam, pix, samp, fp.width, fp.height,
                                  fp.seed)
     rays = torch.cat([o, d, tm[:, None]], dim=1).contiguous()
@@ -607,6 +666,214 @@ def phase_train(dev, card: str) -> dict:
     return recs
 
 
+def pool_rays(sid: int, dev):
+    """(ray_pack [N, 8], sphere table, quad table, t_min) of scene ``sid``:
+    the rays of the first iterations of a plain ``wavefront`` pool.  Every
+    work item of the POOL frame fits in one pool, so the pool starts with
+    all its camera rays and then bounces them (`integrator.bounce_step`
+    with the brute-force hit, as the engine does)."""
+    w, h, spp, iters = POOL
+    scene, meta, cfg, _ = compile_cfg(sid, w, h, spp)
+    st = hit.scene_tensors(scene, dev)
+    hit_fn = hit.brute_force_hit_fn(st, meta)
+    k = torch.arange(w * h * spp, device=dev)
+    o, d, tm, pc = generate_rays(st.camera, k % (w * h), k // (w * h), w, h,
+                                 cfg.seed)
+    samp = (k // (w * h)).to(torch.int32)
+    thr, acc = torch.ones_like(o), torch.zeros_like(o)
+    alive = torch.ones(k.shape[0], dtype=torch.bool, device=dev)
+    packs = []
+    for b in range(iters):
+        packs.append(torch.cat([o, d, tm[:, None],
+                                torch.zeros_like(tm)[:, None]], dim=1))
+        o, d, thr, acc, alive = integrator.bounce_step(
+            st, meta, hit_fn, o, d, tm, thr, acc, alive, pc, samp, b,
+            t_min=cfg.t_min)
+    sph, quad = pallas_hit.pack_geometry(scene, dev)
+    return torch.cat(packs).contiguous(), sph, quad, cfg.t_min
+
+
+def check_k6(rays, sph, quad, t_min: float, what: str) -> float:
+    """K6 against its plain version: ``t`` bit-equal on every lane,
+    ``prim`` on at least 1 - MAX_DIFF_LANES of them.  Returns the largest
+    |t| difference."""
+    t, p = pallas_hit.closest_geo_cuda(rays, sph, quad, t_min)
+    tp, pp = pallas_hit.closest_geo_plain(rays, sph, quad, t_min)
+    t_eq = float((t == tp).float().mean())
+    p_eq = float((p == pp).float().mean())
+    print(f"  {what}: {rays.shape[0]} rays, t identical on {t_eq:.6f}, prim "
+          f"on {p_eq:.6f} of lanes; hits {float((pp >= 0).float().mean()):.3f}",
+          flush=True)
+    if t_eq < 1.0 or p_eq < 1 - MAX_DIFF_LANES:
+        raise AssertionError(f"{what}: K6 disagrees with the plain version")
+    return float((t - tp).abs().max())
+
+
+def phase_closest_geo(dev) -> None:
+    for sid in range(10):
+        rays, sph, quad, t_min = pool_rays(sid, dev)
+        check_k6(rays, sph, quad, t_min, f"scene {sid}")
+
+
+def active_prims(tab_s, row_s: int, tab_q, row_q: int):
+    return (int((tab_s[row_s] > 0.5).sum()), int((tab_q[row_q] > 0.5).sum()))
+
+
+def mega_pool(sid: int, dev):
+    """(tables, rf, ri, kwargs) of K5's first call on scene ``sid``: the
+    first refill of a MEGA_FRAME frame (work item k -> pixel k % npix,
+    sample k // npix)."""
+    w, h, spp = MEGA_FRAME
+    scene, meta, cfg, _ = compile_cfg(sid, w, h, spp)
+    tabs = mega.pack_mega_tables(scene, meta, dev)
+    k = torch.arange(w * h * spp, device=dev)
+    o, d, tm, pc = generate_rays(camera_tuple(scene.camera), k % (w * h),
+                                 k // (w * h), w, h, cfg.seed)
+    rf = torch.cat([o, d, tm[:, None], torch.ones_like(o),
+                    torch.zeros_like(o)], dim=1).contiguous()
+    zero = torch.zeros_like(pc)
+    ri = torch.stack([pc, (k // (w * h)).to(torch.int32), zero, zero + 1],
+                     dim=1).contiguous()
+    kw = dict(k_bounces=mega.MEGA_K, t_min=cfg.t_min,
+              max_bounces=cfg.max_bounces,
+              background=tuple(float(x) for x in
+                               np.asarray(scene.camera.background)))
+    return tabs, rf, ri, kw
+
+
+def phase_mega_bounces(dev) -> dict:
+    """K5 against its plain version; returns K5's record from scene 0's
+    pool (the main path's shape: 8192 lanes, scene 0's tables)."""
+    rec = {}
+    for sid in MEGA_SCENES:
+        tabs, rf, ri, kw = mega_pool(sid, dev)
+        first = (tabs, rf, ri, kw)
+        errs = []
+        for call in range(2):
+            rf_k, ri_k = mega.mega_bounces_cuda(rf, ri, tabs, **kw)
+            rf_p, ri_p = mega.mega_bounces_plain(rf, ri, tabs, **kw)
+            ri_eq = float((ri_k == ri_p).all(1).float().mean())
+            print(f"  scene {sid} call {call}: ri identical on {ri_eq:.6f} of "
+                  f"lanes", flush=True)
+            if ri_eq < 1 - MAX_DIFF_LANES:
+                raise AssertionError(f"scene {sid}: K5's ri differs")
+            st = compare(rf_k.cpu().numpy(), rf_p.cpu().numpy(),
+                         f"scene {sid} call {call} rf", unit="lanes")
+            errs.append(st["max_abs"])
+            rf, ri = rf_k, ri_k
+        if sid != 0:
+            continue
+        tabs, rf, ri, kw = first
+        ms = device_ms(lambda: mega.mega_bounces_cuda(rf, ri, tabs, **kw),
+                       "mega_bounces_kernel")
+        plain_ms, (_, ri_p) = once_ms(
+            lambda: mega.mega_bounces_plain(rf, ri, tabs, **kw))
+        lb = int((ri_p[:, 2] - ri[:, 2]).sum())
+        n_s, n_q = active_prims(tabs.sph, mega.SPH_ACTIVE, tabs.quad,
+                                mega.QUAD_ACTIVE)
+        ops = lb * (n_s * OPS_XSPHERE + n_q * OPS_XQUAD
+                    + tabs.n_media * OPS_XMEDIUM + OPS_XBOUNCE)
+        rec = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                   bound=bound(nbytes(tabs.sph, tabs.quad, tabs.attr, tabs.med)
+                               + 2 * nbytes(rf, ri), ops))
+        print(f"  K5 on scene 0's {rf.shape[0]}-lane pool: {ms:.4f} ms a "
+              f"launch (torch.profiler), plain {plain_ms:.2f} ms; "
+              f"{lb} lane-bounces over {n_s} spheres, {n_q} quads; bound "
+              f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]})", flush=True)
+    return rec
+
+
+def frame_split(evs, kernel: str, frame_ms: float) -> dict:
+    """The profiled frame's device time: the kernel's, the rest's, and the
+    busy share of the unprofiled frame."""
+    k_us = sum(us for key, us, _ in evs if kernel in key)
+    k_n = sum(n for key, _, n in evs if kernel in key)
+    all_us = sum(us for _, us, _ in evs)
+    busy_ms = all_us / 1e3
+    print(f"    device: {kernel} {k_us / 1e3:.2f} ms over {k_n} launches "
+          f"({k_us / 1e3 / max(k_n, 1):.4f} ms each), other kernels "
+          f"{(all_us - k_us) / 1e3:.2f} ms, {sum(n for *_, n in evs)} "
+          f"launches in all; busy {busy_ms / frame_ms:.3f} of the "
+          f"{frame_ms:.1f} ms frame; busiest: " + ", ".join(
+              f"{key[:32]} {us / 1e3:.1f} ms x{n}" for key, us, n in
+              sorted(evs, key=lambda e: -e[1])[:5]), flush=True)
+    return {"kernel_ms": k_us / 1e3 / max(k_n, 1), "busy": busy_ms / frame_ms}
+
+
+def phase_xla_frames(dev, card: str) -> dict:
+    """The XLA-family engines at full width; returns K6's record at the
+    main path's first pool and the launch counts of K5 and K6 over the
+    main path's frames."""
+    w, h, spp = MAIN
+    scene, meta, cfg, _ = compile_cfg(0, w, h, spp)
+    flat = lambda img: np.ascontiguousarray(img).reshape(-1, 3)
+
+    # K6 at the main path's first pool: the camera rays of work items
+    # 0 .. P-1
+    P = min(cfg.rays_per_batch, w * h * spp)
+    k = torch.arange(P, device=dev)
+    o, d, tm, _ = generate_rays(camera_tuple(scene.camera), k % (w * h),
+                                k // (w * h), w, h, cfg.seed)
+    rays = torch.cat([o, d, tm[:, None], torch.zeros_like(tm)[:, None]],
+                     dim=1).contiguous()
+    sph, quad = pallas_hit.pack_geometry(scene, dev)
+    err = check_k6(rays, sph, quad, cfg.t_min, "scene 0's first pool")
+    ms = device_ms(lambda: pallas_hit.closest_geo_cuda(rays, sph, quad,
+                                                       cfg.t_min),
+                   "closest_geo_kernel")
+    plain_ms, _ = once_ms(lambda: pallas_hit.closest_geo_plain(
+        rays, sph, quad, cfg.t_min))
+    n_s, n_q = active_prims(sph, pallas_hit.SPH_ACTIVE, quad,
+                            pallas_hit.QUAD_ACTIVE)
+    k6 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+              bound=bound(nbytes(sph, quad) + 40 * P,
+                          P * (n_s * OPS_XSPHERE + n_q * OPS_XQUAD)))
+    print(f"  K6 on {P} rays: {ms:.4f} ms a launch (torch.profiler), plain "
+          f"{plain_ms:.2f} ms; {n_s} spheres, {n_q} quads; bound "
+          f"{k6['bound'][0]:.4f} ms ({k6['bound'][1]})", flush=True)
+
+    k1_img = flat(render(scene, meta, cfg, device=dev))
+    plain_s, plain_img = once_s(lambda: flat(render(
+        scene, meta, cfg.with_(engine="wavefront"), device=dev)))
+    print(f"  references: K1's mega2 frame; the plain wavefront frame, "
+          f"{plain_s:.2f} s on the card", flush=True)
+    launches = {}
+    for engine, wrapper, kname in (
+            ("wavefront_pallas", pallas_hit.closest_geo_cuda,
+             "closest_geo_kernel"),
+            ("mega", mega.mega_bounces_cuda, "mega_bounces_kernel")):
+        ecfg = cfg.with_(engine=engine)
+        wrapper.launches = 0
+        sec, img = timed(lambda: render(scene, meta, ecfg, device=dev))
+        launches[kname] = wrapper.launches
+        print(f"  {engine}: best of 3 {sec:.4f} s, {w * h * spp / sec / 1e6:.2f}"
+              f" M rays/s on {card}; {wrapper.launches} launches over 4 "
+              f"frames ({wrapper.launches // 4} loop iterations a frame, one "
+              f"host sync each)", flush=True)
+        if wrapper.launches < 4:
+            raise AssertionError(f"{engine} did not launch its kernel")
+        t0 = time.perf_counter()
+        frame_split(device_events(lambda: render(scene, meta, ecfg,
+                                                 device=dev), 1),
+                    kname, sec * 1e3)
+        print(f"    (profiled frame and its reading: "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        img = flat(img)
+        compare(img, k1_img, f"{engine} vs K1's frame")
+        compare(img, plain_img, f"{engine} vs the plain wavefront frame",
+                max_frac=MAX_FRAC_PLAIN_WF)
+    k6["launches"] = launches["closest_geo_kernel"]
+
+    scene, meta, cfg, label = compile_cfg(9, w, h, spp)
+    print(f"  scene 9 texture: {label}", flush=True)
+    s9, img9 = once_s(lambda: flat(render(
+        scene, meta, cfg.with_(engine="wavefront_pallas"), device=dev)))
+    print(f"  scene 9 wavefront_pallas: {s9:.2f} s on {card}", flush=True)
+    compare(img9, flat(render(scene, meta, cfg, device=dev)),
+            "scene 9 wavefront_pallas vs K1's frame")
+    return {"closest_geo": k6,
+            "mega_bounces_launches": launches["mega_bounces_kernel"]}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -738,6 +1005,26 @@ def main() -> int:
           f"{w}x{h}, spp {spp}, K {K}, Adam lr 1e-2", flush=True)
     recs = phase_train(dev, card)
 
+    w, h, spp, iters = POOL
+    print(f"[10] K6 vs closest_geo_plain, all scenes: the first {iters} "
+          f"iterations of a plain wavefront pool at {w}x{h}@{spp}",
+          flush=True)
+    phase_closest_geo(dev)
+
+    w, h, spp = MEGA_FRAME
+    print(f"[11] K5 vs mega_bounces_plain, scenes {MEGA_SCENES}: two calls "
+          f"on the {w * h * spp}-lane pool of a {w}x{h}@{spp} frame",
+          flush=True)
+    k5 = phase_mega_bounces(dev)
+
+    w, h, spp = MAIN
+    print(f"[12] main path: ops/render.render, engines wavefront_pallas and "
+          f"mega, scene 0 at {w}x{h}@{spp}; scene 9 through "
+          f"wavefront_pallas", flush=True)
+    xla = phase_xla_frames(dev, card)
+    recs["mega_bounces"] = dict(launches=xla["mega_bounces_launches"], **k5)
+    recs["closest_geo"] = xla["closest_geo"]
+
     if any(m.startswith(("jax", "raytracinginoneweekendincuda_tpu"))
            for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
@@ -752,6 +1039,9 @@ def main() -> int:
             "raytracinginoneweekendincuda_tpu/ops/pallas_replay.py:655",
         "replay_bwd":
             "raytracinginoneweekendincuda_tpu/ops/pallas_replay.py:693",
+        "mega_bounces": "raytracinginoneweekendincuda_tpu/ops/mega.py:218",
+        "closest_geo":
+            "raytracinginoneweekendincuda_tpu/ops/pallas_hit.py:106",
     }
     print(json.dumps({"kernels": [{
         "name": kname,

@@ -87,19 +87,34 @@ def pcg4d(v0, v1, v2, v3):
     return v0, v1, v2, v3
 
 
-def unit(word: torch.Tensor) -> torch.Tensor:
-    """Word -> f32 in [0, 1) from its top 24 bits (exact in f32)."""
-    return _shr(word, 8).to(torch.float32) * INV_2POW24
+def unit(word: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Word -> float in [0, 1) from its top 24 bits (exact in f32 and
+    f64)."""
+    return _shr(word, 8).to(dtype) * INV_2POW24
 
 
-def uniform4(pix_ctr, sample, stream, slot):
-    """Four uniforms in [0, 1) for one counter tuple (int32 tensors or ints
-    broadcast against ``pix_ctr``)."""
-    full = lambda v: torch.broadcast_to(
-        torch.as_tensor(v, dtype=torch.int32, device=pix_ctr.device),
-        pix_ctr.shape)
-    words = pcg4d(pix_ctr, full(sample), full(stream), full(slot))
-    return tuple(unit(w) for w in words)
+def _words(pix_ctr, sample, stream, slot):
+    """pcg4d of one counter tuple: int32 tensors or ints, broadcast to a
+    common shape."""
+    dev = pix_ctr.device
+    args = [torch.as_tensor(v, dtype=torch.int32, device=dev)
+            for v in (pix_ctr, sample, stream, slot)]
+    shape = torch.broadcast_shapes(*(a.shape for a in args))
+    return pcg4d(*(torch.broadcast_to(a, shape) for a in args))
+
+
+def uniform4(pix_ctr, sample, stream, slot, dtype=torch.float32):
+    """Four uniforms in [0, 1) for one counter tuple (int32 tensors or ints,
+    broadcast against each other)."""
+    return tuple(unit(w, dtype) for w in _words(pix_ctr, sample, stream,
+                                                slot))
+
+
+def uniform_open4(pix_ctr, sample, stream, slot, dtype=torch.float32):
+    """Four uniforms in (0, 1] -- curand_uniform's range, so log() of a
+    draw is finite (ConstantMedium.h:26)."""
+    return tuple(unit(w, dtype) + INV_2POW24
+                 for w in _words(pix_ctr, sample, stream, slot))
 
 
 def as_uint32(x: torch.Tensor) -> np.ndarray:

@@ -1,15 +1,18 @@
 """Branchless samplers used by raygen and scatter.
 
-Port of the parts of ``raytracinginoneweekendincuda_tpu/core/samplers.py``
-that the mega2 path uses, in the op order of the mega2 kernel
-(``ops/mega2.py:_scatter_dirs`` and ``raygen`` there): the lens disk and
-the unit-ball sample.  Square roots go through :func:`sqrt_f32`.
+Port of ``raytracinginoneweekendincuda_tpu/core/samplers.py``.  The lens
+disk serves every engine.  `unit_ball` follows the op order of the mega2
+kernel (``ops/mega2.py:_scatter_dirs``) in f32; `unit_ball_xyz` and
+`unit_sphere_surface` are the XLA engines' samplers as written, for f32
+and f64.  Square roots are correctly rounded (:func:`sqrt_f32`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .vecmath import sqrt_exact
 
 TWO_PI = float(np.float32(2.0 * np.pi))
 ONE_THIRD = float(np.float32(1.0 / 3.0))
@@ -23,9 +26,10 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def unit_disk(u1: torch.Tensor, u2: torch.Tensor):
-    """Uniform point in the unit disk: (r cos phi, r sin phi), r = sqrt(u1)."""
-    r = sqrt_f32(u1)
-    phi = TWO_PI * u2
+    """Uniform point in the unit disk: (r cos phi, r sin phi), r = sqrt(u1),
+    in ``u1``'s dtype (f32 or f64)."""
+    r = sqrt_exact(u1)
+    phi = (2.0 * np.pi) * u2
     return r * torch.cos(phi), r * torch.sin(phi)
 
 
@@ -42,3 +46,43 @@ def unit_ball(u1: torch.Tensor, u2: torch.Tensor, u3: torch.Tensor):
     ball = (rad_b * rxy * cb, rad_b * rxy * sb, rad_b * zb)
     sphere = (rxy * cb, rxy * sb, zb)
     return ball, sphere
+
+
+# ---- the XLA engines' samplers, any float dtype (the JAX package's
+# core/samplers.py as written: stacked [..., 3] results, guarded roots)
+
+
+def safe_root(x: torch.Tensor, p: float) -> torch.Tensor:
+    """``x ** p`` for ``x > 0``, else exactly 0 (``_safe_root``).  ``p`` is
+    0.5 (a correctly rounded sqrt) or 1/3 (``pow`` with the exponent
+    rounded to ``x``'s dtype, as JAX's weakly typed literal is)."""
+    pos = x > 0
+    xs = torch.where(pos, x, 1.0)
+    if p == 0.5:
+        r = sqrt_exact(xs)
+    else:
+        r = torch.pow(xs, float(np.float32(p)) if x.dtype == torch.float32
+                      else p)
+    return torch.where(pos, r, 0.0)
+
+
+def unit_ball_xyz(u1, u2, u3) -> torch.Tensor:
+    """Uniform point in the unit ball [..., 3]: z uniform, azimuth
+    uniform, cube-root radius (replaces the rejection loop at
+    Material.h:14-24)."""
+    z = 1.0 - 2.0 * u1
+    phi = (2.0 * np.pi) * u2
+    rho = safe_root(1.0 - z * z, 0.5)
+    r = safe_root(u3, 1.0 / 3.0)
+    return torch.stack((r * rho * torch.cos(phi), r * rho * torch.sin(phi),
+                        r * z), dim=-1)
+
+
+def unit_sphere_surface(u1, u2) -> torch.Tensor:
+    """Uniform direction on the unit sphere [..., 3] (the isotropic phase
+    function, Material.h:160), from the same (u1, u2) as the ball."""
+    z = 1.0 - 2.0 * u1
+    phi = (2.0 * np.pi) * u2
+    rho = safe_root(1.0 - z * z, 0.5)
+    return torch.stack((rho * torch.cos(phi), rho * torch.sin(phi), z),
+                       dim=-1)

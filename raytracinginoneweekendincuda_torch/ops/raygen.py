@@ -51,28 +51,31 @@ def generate_rays(cam, pix: torch.Tensor, sample, width: int,
                   height: int, seed: int):
     """Camera rays for int pixel ids ``pix`` [B] at ``sample`` (int or [B]).
 
-    ``cam`` is `camera_tuple` or a ``CameraParams`` of f32 tensors on
-    ``pix``'s device.  Returns (origin [B,3], direction [B,3], time [B],
-    pix_ctr [B] int32), all f32 but the counter."""
+    ``cam`` is `camera_tuple` (f32 rays) or a ``CameraParams`` of 0-d / [3]
+    tensors on ``pix``'s device (rays in the camera's dtype, f32 or f64).
+    Returns (origin [B,3], direction [B,3], time [B], pix_ctr [B] int32)."""
     dev = pix.device
     if isinstance(cam, CameraParams):
+        dtype = cam.origin.dtype
         (c_ox, c_oy, c_oz, llx, lly, llz, hx, hy, hz, vx, vy, vz,
          ux, uy, uz, cvx, cvy, cvz, lens_r, tm0, shutter) = \
             _camera_scalars(cam)
     else:
+        dtype = torch.float32
         (c_ox, c_oy, c_oz, llx, lly, llz, hx, hy, hz, vx, vy, vz,
          ux, uy, uz, cvx, cvy, cvz, lens_r, tm0, tm1) = cam
         shutter = float(np.float32(tm1) - np.float32(tm0))
     pix_ctr = pixel_counter(pix, seed)
-    ju, jv, l1, l2 = rng.uniform4(pix_ctr, sample, rng.CAMERA_STREAM, 0)
-    tu = rng.uniform4(pix_ctr, sample, rng.CAMERA_STREAM + 1, 0)[0]
+    ju, jv, l1, l2 = rng.uniform4(pix_ctr, sample, rng.CAMERA_STREAM, 0,
+                                  dtype)
+    tu = rng.uniform4(pix_ctr, sample, rng.CAMERA_STREAM + 1, 0, dtype)[0]
     pix64 = pix.to(torch.int64)
-    i_f = (pix64 % width).to(torch.float32)
-    j_f = (pix64 // width).to(torch.float32)
+    i_f = (pix64 % width).to(dtype)
+    j_f = (pix64 // width).to(dtype)
     # divide by a device tensor: a python-scalar divisor lets the CUDA
     # kernel multiply by its reciprocal instead
-    w_t = torch.tensor(float(width), dtype=torch.float32, device=dev)
-    h_t = torch.tensor(float(height), dtype=torch.float32, device=dev)
+    w_t = torch.tensor(float(width), dtype=dtype, device=dev)
+    h_t = torch.tensor(float(height), dtype=dtype, device=dev)
     s = (i_f + ju) / w_t
     t = (j_f + jv) / h_t
     dcos, dsin = unit_disk(l1, l2)

@@ -128,7 +128,7 @@ def _mat_tab(scene: SceneArrays, device):
         col(s.tex_noise)[tid], col(s.tex_image)[tid]], dim=1)
 
 
-def derive_replay(scene: SceneArrays, meta: SceneMeta, device="cpu"):
+def derive_replay(scene: SceneArrays, meta: SceneMeta, device):
     """Merged replay rows [S+Q, 27] keyed by global scene id, and the
     media's material rows [M, 14] (None without media).  Plain
     differentiable torch on the scene leaves: a leaf that is a tensor
@@ -185,8 +185,8 @@ def _media_constants(scene: SceneArrays, meta: SceneMeta, device):
 
 
 def replay_table(scene: SceneArrays, meta: SceneMeta, tex, *,
-                 kernel_space=None, device="cpu") -> ReplayTables:
-    """The replay's tables for ``scene`` on ``device``.
+                 kernel_space=None) -> ReplayTables:
+    """The replay's tables for ``scene``, on the device of ``tex``.
 
     ``tex`` is any object with the mega2 packer's ``perm``, ``vec``,
     ``texels`` and ``img_dims`` (e.g. the trace's `Mega2Tables`).
@@ -195,6 +195,7 @@ def replay_table(scene: SceneArrays, meta: SceneMeta, tex, *,
     kernel row order (a differentiable gather of NP rows) instead of
     mapping the tape to global ids.  Port of the table assembly of the
     JAX package's ``replay_pallas``."""
+    device = tex.perm.device
     rep, med_rows = derive_replay(scene, meta, device)
     M = meta.n_media
     if M > 0:

@@ -35,6 +35,7 @@ from ..ops.mega2 import (
 )
 from ..ops.raygen import generate_rays
 from ..ops.replay import replay_table
+from ..ops.render import resolve_device
 from ..ops.replay_cuda import replay
 from ..scene.compiler import SceneArrays, SceneMeta
 from ..utils.config import RenderConfig
@@ -53,19 +54,21 @@ def _leaf(x, device) -> torch.Tensor:
                         requires_grad=True)
 
 
-def params_from_numpy(arrays: dict, device="cpu") -> dict:
+def params_from_numpy(arrays: dict, device="cuda") -> dict:
     """Parameters from numpy arrays: ``arrays`` maps each name of
     `DIFF_SCENE_FIELDS` to an array and ``"camera"`` to a
     ``CameraParams``-shaped tuple of arrays (the JAX package's
     ``split_params`` output, converted with ``np.asarray``).  Returns f32
-    leaf tensors on ``device`` that require grad."""
+    leaf tensors on ``device`` (the card unless the caller asks for the
+    CPU) that require grad."""
+    device = resolve_device(device)
     params = {f: _leaf(arrays[f], device) for f in DIFF_SCENE_FIELDS}
     params["camera"] = CameraParams(*[_leaf(x, device)
                                       for x in arrays["camera"]])
     return params
 
 
-def split_params(scene: SceneArrays, device="cpu") -> dict:
+def split_params(scene: SceneArrays, device="cuda") -> dict:
     """scene -> parameter dict (the differentiable leaves, camera
     included), as fresh leaf tensors on ``device``."""
     arrays = {f: getattr(scene, f) for f in DIFF_SCENE_FIELDS}
@@ -99,9 +102,10 @@ class TrainState(NamedTuple):
 
 
 def init_state(scene: SceneArrays, make_optimizer: Callable,
-               device="cpu", params: dict | None = None) -> TrainState:
-    """Fresh parameters of ``scene`` (or the given ``params``) and the
-    optimizer ``make_optimizer(parameter_list)`` over them, e.g.
+               device="cuda", params: dict | None = None) -> TrainState:
+    """Fresh parameters of ``scene`` on ``device`` (or the given
+    ``params``, on their own device) and the optimizer
+    ``make_optimizer(parameter_list)`` over them, e.g.
     ``lambda ps: torch.optim.Adam(ps, lr=0.05)``."""
     if params is None:
         params = split_params(scene, device)
@@ -143,8 +147,7 @@ def make_train_step_mega2(scene: SceneArrays, meta: SceneMeta,
         state.optimizer.zero_grad(set_to_none=True)
         sc = merge_params(scene, params)
         tt = replay_table(sc, meta, tab,
-                          kernel_space=mega2_kernel_id_space(tab, meta),
-                          device=dev)
+                          kernel_space=mega2_kernel_id_space(tab, meta))
         img = torch.zeros((B, 3), dtype=torch.float32, device=dev)
         for s in range(spp):
             o, d, tm, pc = generate_rays(sc.camera, pix, s, W, H, cfg.seed)

@@ -3,9 +3,11 @@
 Same flags as ``raytracinginoneweekendincuda_tpu.utils.cli`` (defaults
 follow the reference: 1440x720, scene 9, per-scene spp, seed 1984), except
 that ``--device {cuda,cpu}`` replaces ``--cpu``, ``--sharded`` and
-``--profile``.  ``--device cuda`` (the default) renders with the CUDA
-kernel and raises when there is no CUDA device; ``--device cpu`` renders
-with the plain PyTorch version.
+``--profile``, and the BVH engines are not ported yet.  ``--device cuda``
+(the default) renders on the card -- the engines' CUDA kernels (K1 for
+``mega2``, K5 for ``mega``, K6 for ``wavefront_pallas``) and plain PyTorch
+around them -- and raises when there is no CUDA device; ``--device cpu``
+renders with the plain PyTorch versions.
 
 Usage:
     python -m raytracinginoneweekendincuda_torch.utils.cli \
@@ -17,6 +19,8 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+from ..ops.render import ENGINES
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,12 +37,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", type=str, default="output.ppm")
     p.add_argument("--png", type=str, default=None,
                    help="also write a PNG here")
-    p.add_argument("--engine", default="mega2", choices=("mega2",),
-                   help="render engine (only mega2 is ported so far)")
-    p.add_argument("--dtype", choices=("float32",), default="float32")
+    p.add_argument("--engine", default="mega2", choices=ENGINES,
+                   help="render engine: mega2 (kernel K1), mega (K5; noise "
+                        "and image scenes fall back to wavefront_pallas), "
+                        "wavefront_pallas (K6), wavefront and bruteforce "
+                        "(plain PyTorch)")
+    p.add_argument("--dtype", choices=("float32", "float64"),
+                   default="float32",
+                   help="scene / engine dtype; float64 for bruteforce and "
+                        "wavefront (the kernels are f32)")
     p.add_argument("--rays-per-batch", type=int, default=None,
-                   help="accepted for compatibility; mega2 renders the "
-                        "whole frame in one launch")
+                   help="pixel chunk (bruteforce) or ray-pool size (the "
+                        "wavefront engines; mega caps it at 8192); mega2 "
+                        "renders the whole frame in one launch")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda: the CUDA kernel (raises without a card); "
                         "cpu: the plain PyTorch version")
@@ -64,13 +75,19 @@ def main(argv=None) -> int:
         width=args.width, height=args.height, samples_per_pixel=spp,
         max_bounces=args.max_bounces, seed=args.seed, engine=args.engine,
         dtype=args.dtype)
+    if args.rays_per_batch is not None:
+        cfg = cfg.with_(rays_per_batch=args.rays_per_batch)
+    if args.dtype == "float64" and args.engine not in ("bruteforce",
+                                                       "wavefront"):
+        raise SystemExit(f"--dtype float64 needs engine bruteforce or "
+                         f"wavefront, not {args.engine}")
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"Rendering scene {args.scene} ({SCENE_NAMES[args.scene]}): "
           f"{cfg.width}x{cfg.height}, {spp} spp, engine={args.engine}, "
           f"device={dev} ({name})", file=sys.stderr)
 
     scene, meta = compile_scene(build_scene(args.scene), cfg.width,
-                                cfg.height, dtype=np.float32)
+                                cfg.height, dtype=np.dtype(args.dtype))
     t0 = time.perf_counter()
     img = render(scene, meta, cfg, device=dev, out_u8=True)
     dt = time.perf_counter() - t0

@@ -1,7 +1,7 @@
 """PyTorch port on the card: each kernel against its plain PyTorch version
--- K1 (csrc/mega2_render.cu), K2 (csrc/mega2_trace.cu), and K3 / K4
+-- K1 (csrc/mega2_render.cu), K2 (csrc/mega2_trace.cu), K3 / K4
 (csrc/replay_fwd.cu, csrc/replay_bwd.cu) against ``replay_plain`` and its
-autograd.  Imports only the port (the card's machine has no JAX).  Marked
+autograd, K5 (csrc/mega_bounces.cu) and K6 (csrc/closest_geo.cu).  Imports only the port (the card's machine has no JAX).  Marked
 ``cuda``; skipped where there is no CUDA device (the kernels have no CPU
 build).  Run on a card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda -p no:xdist``."""
@@ -12,7 +12,10 @@ import torch
 
 import torch_texture_scenes as tex
 from raytracinginoneweekendincuda_torch.core import camera
-from raytracinginoneweekendincuda_torch.ops import mega2
+from raytracinginoneweekendincuda_torch.ops import mega, mega2, pallas_hit
+from raytracinginoneweekendincuda_torch.ops.raygen import (
+    camera_tuple, generate_rays,
+)
 from raytracinginoneweekendincuda_torch.ops.render import finalize
 from raytracinginoneweekendincuda_torch.models import scenes
 from raytracinginoneweekendincuda_torch.scene import api
@@ -111,8 +114,7 @@ def _grads(probes, case, fn, wgt):
 
     tt = trp.replay_table(
         case["scene"], case["meta"], case["tab"],
-        kernel_space=mega2.mega2_kernel_id_space(case["tab"], case["meta"]),
-        device=rays.device)
+        kernel_space=mega2.mega2_kernel_id_space(case["tab"], case["meta"]))
     rep_leaf = tt.rep.detach().clone().requires_grad_(True)
     out = fn(tt._replace(rep=rep_leaf), rays, case["tape"], case["pix_ctr"],
              0, bg, t_min=probes.T_MIN)
@@ -164,8 +166,7 @@ def test_k4_matches_fd_of_k3(dev):
     probes, case = _replay_case("marble probe", dev, K=4)
     tt = trp.replay_table(
         case["scene"], case["meta"], case["tab"],
-        kernel_space=mega2.mega2_kernel_id_space(case["tab"], case["meta"]),
-        device=dev)
+        kernel_space=mega2.mega2_kernel_id_space(case["tab"], case["meta"]))
     rep = tt.rep.detach().clone().requires_grad_(True)
     bg = case["bg"].clone().requires_grad_(True)
     out = rc.replay(tt._replace(rep=rep), case["rays"], case["tape"],
@@ -194,3 +195,100 @@ def test_k4_matches_fd_of_k3(dev):
         fd = (primal(plus, bp) - primal(minus, bm)) / (2 * eps)
         assert abs(g) > 0.0
         np.testing.assert_allclose(g, fd, rtol=5e-2)
+
+
+# ---- the XLA engine family: K6 (closest geometry hit), K5 (ray pool)
+
+def _camera_rays(scene, dev, W, H, spp):
+    """Camera rays of every (pixel, sample) work item, k -> (k % W*H,
+    k // W*H)."""
+    k = torch.arange(W * H * spp, device=dev)
+    return k, generate_rays(camera_tuple(scene.camera), k % (W * H),
+                            k // (W * H), W, H, 1984)
+
+
+@pytest.mark.parametrize("sid", range(10))
+def test_k6_matches_plain_on_card(sid, dev):
+    """Camera rays and their directions jittered (numpy seed 3): ``t``
+    identical on every lane, ``prim`` on at least 99.9% of them."""
+    W, H = 32, 16
+    scene, _ = compile_scene(scenes.build_scene(sid), W, H, dtype=np.float32)
+    sph, quad = pallas_hit.pack_geometry(scene, dev)
+    _, (o, d, tm, _) = _camera_rays(scene, dev, W, H, 2)
+    jit = np.random.default_rng(3).normal(0.0, 0.2, tuple(d.shape))
+    d = d + d.norm(dim=1, keepdim=True) * torch.as_tensor(
+        jit.astype(np.float32), device=dev)
+    rays = torch.cat([o, d, tm[:, None], torch.zeros_like(tm)[:, None]],
+                     dim=1).contiguous()
+    before = pallas_hit.closest_geo_cuda.launches
+    t, p = pallas_hit.closest_geo(rays, sph, quad, 1e-3)
+    tp, pp = pallas_hit.closest_geo_plain(rays, sph, quad, 1e-3)
+    torch.cuda.synchronize()
+    assert pallas_hit.closest_geo_cuda.launches == before + 1
+    assert t.device == dev and p.dtype == torch.int32
+    assert torch.equal(t, tp)
+    assert (p == pp).float().mean() >= 0.999
+
+
+def test_k6_rejects_bad_inputs(dev):
+    scene, _ = compile_scene(scenes.build_scene(4), 8, 8, dtype=np.float32)
+    sph, quad = pallas_hit.pack_geometry(scene, dev)
+    rays = torch.zeros((64, 8), device=dev)
+    with pytest.raises(ValueError, match="\\[B, 8\\]"):
+        pallas_hit.closest_geo_cuda(rays[:, :7].contiguous(), sph, quad, 1e-3)
+    with pytest.raises(ValueError, match="rows"):
+        pallas_hit.closest_geo_cuda(rays, sph[:9].contiguous(), quad, 1e-3)
+    with pytest.raises(ValueError, match="f32"):
+        pallas_hit.closest_geo_cuda(rays.double(), sph, quad, 1e-3)
+
+
+@pytest.mark.parametrize("sid", (0, 1, 4, 6, 7, 8))
+def test_k5_matches_plain_on_card(sid, dev):
+    """Two calls of K = 2 bounces from a fresh 1024-lane pool: ``ri``
+    equal on at least 99.9% of lanes, ``rf`` within K1's bounds."""
+    W, H, spp = 32, 16, 2
+    scene, meta = compile_scene(scenes.build_scene(sid), W, H,
+                                dtype=np.float32)
+    tabs = mega.pack_mega_tables(scene, meta, dev)
+    k, (o, d, tm, pc) = _camera_rays(scene, dev, W, H, spp)
+    rf = torch.cat([o, d, tm[:, None], torch.ones_like(o),
+                    torch.zeros_like(o)], dim=1).contiguous()
+    zero = torch.zeros_like(pc)
+    ri = torch.stack([pc, (k // (W * H)).to(torch.int32), zero, zero + 1],
+                     dim=1).contiguous()
+    kw = dict(k_bounces=2, t_min=1e-3, max_bounces=50,
+              background=tuple(float(x) for x in
+                               np.asarray(scene.camera.background)))
+    for _ in range(2):
+        before = mega.mega_bounces_cuda.launches
+        rf_k, ri_k = mega.mega_bounces(rf, ri, tabs, **kw)
+        rf_p, ri_p = mega.mega_bounces_plain(rf, ri, tabs, **kw)
+        torch.cuda.synchronize()
+        assert mega.mega_bounces_cuda.launches == before + 1
+        assert (ri_k == ri_p).all(1).float().mean() >= 0.999
+        diff = (rf_k - rf_p).abs().double().cpu().numpy()
+        assert np.isfinite(rf_k.cpu().numpy()).all()
+        assert (diff.max(-1) > 1e-4).mean() <= 0.01
+        assert diff.mean() < 2e-3
+        rf, ri = rf_k, ri_k
+
+
+def test_xla_engines_render_on_card(dev):
+    """``render`` with ``mega`` and ``wavefront_pallas`` on the card
+    launches K5 / K6 and agrees with the same engines on the CPU (scene 4,
+    16x8@2: quads only, no flips)."""
+    from raytracinginoneweekendincuda_torch.ops.render import render
+
+    scene, meta = compile_scene(scenes.build_scene(4), 16, 8,
+                                dtype=np.float32)
+    for engine, wrapper in (("mega", mega.mega_bounces_cuda),
+                            ("wavefront_pallas",
+                             pallas_hit.closest_geo_cuda)):
+        cfg = RenderConfig(width=16, height=8, samples_per_pixel=2,
+                           engine=engine)
+        before = wrapper.launches
+        img = render(scene, meta, cfg, device=dev)
+        assert wrapper.launches > before
+        np.testing.assert_allclose(img, render(scene, meta, cfg,
+                                               device="cpu"),
+                                   atol=1e-5, rtol=0)

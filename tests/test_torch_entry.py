@@ -14,6 +14,7 @@ from raytracinginoneweekendincuda_torch.utils import cli
 from raytracinginoneweekendincuda_tpu.models import scenes
 from raytracinginoneweekendincuda_tpu.scene.compiler import compile_scene
 from raytracinginoneweekendincuda_tpu.utils.config import RenderConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -44,7 +45,10 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and "clean" in r.stdout, r.stderr[-2000:]
-    assert int(r.stdout.split()[-1]) >= 20, r.stdout
+    # 36 modules, the XLA engine family's (core/vecmath, ops/hit, shade,
+    # textures, perlin, integrator, dispatch, wavefront, pallas_hit, mega)
+    # among them
+    assert int(r.stdout.split()[-1]) >= 36, r.stdout
 
 
 def test_cli_cpu_writes_ppm(tmp_path):
@@ -59,6 +63,76 @@ def test_cli_cpu_writes_ppm(tmp_path):
     assert px.min() >= 0 and px.max() <= 255 and px.any()
 
 
+@pytest.mark.parametrize("engine", ("bruteforce", "wavefront",
+                                    "wavefront_pallas", "mega"))
+def test_cli_cpu_xla_engines(engine, tmp_path):
+    """The XLA-family engines render through the CLI on the CPU (scene 4,
+    16x8@1) and agree with the default engine's frame to a u8 step."""
+    out = tmp_path / f"{engine}.ppm"
+    ref = tmp_path / "mega2.ppm"
+    base = ["--scene", "4", "--width", "16", "--height", "8", "--spp", "1",
+            "--device", "cpu"]
+    assert cli.main([*base, "--engine", engine, "--out", str(out)]) == 0
+    assert cli.main([*base, "--out", str(ref)]) == 0
+    a, b = (np.array([[int(v) for v in ln.split()]
+                      for ln in f.read_text().splitlines()[3:]])
+            for f in (out, ref))
+    assert a.shape == (16 * 8, 3) and np.abs(a - b).max() <= 1
+
+
+@pytest.mark.parametrize("engine", ("bruteforce", "mega"))
+def test_cli_cuda_engine_without_card_raises(engine):
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--scene", "4", "--width", "16", "--height", "8",
+                  "--spp", "1", "--engine", engine, "--out", os.devnull])
+
+
+@pytest.mark.parametrize("entry", ("init_state", "split_params",
+                                   "params_from_numpy", "derive_replay",
+                                   "replay_table"))
+def test_entry_points_have_no_cpu_default(entry):
+    """The training entry points run on the card unless asked for the CPU:
+    without a device argument they raise where there is no card, and make
+    no CPU tensor.  ``derive_replay`` takes its device explicitly;
+    ``replay_table`` takes its device from the tables it is given."""
+    import inspect
+
+    from raytracinginoneweekendincuda_torch.ops import replay
+    from raytracinginoneweekendincuda_torch.parallel import train
+    from raytracinginoneweekendincuda_torch.scene.compiler import (
+        compile_scene as tcompile,
+    )
+    from raytracinginoneweekendincuda_torch.models import scenes as tscenes
+
+    _no_card()
+    if entry == "derive_replay":
+        param = inspect.signature(replay.derive_replay).parameters["device"]
+        assert param.default is inspect.Parameter.empty
+        return
+    if entry == "replay_table":
+        assert "device" not in inspect.signature(
+            replay.replay_table).parameters
+        return
+    scene, _ = tcompile(tscenes.build_scene(4), 8, 8, dtype=np.float32)
+    arrays = train.params_to_numpy(train.split_params(scene, "cpu"))
+    calls = {
+        "init_state": lambda: train.init_state(
+            scene, lambda ps: torch.optim.Adam(ps, lr=0.1)),
+        "split_params": lambda: train.split_params(scene),
+        "params_from_numpy": lambda: train.params_from_numpy(arrays),
+    }
+    made = []
+    real_leaf = train._leaf
+    train._leaf = lambda x, device: made.append(real_leaf(x, device))
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            calls[entry]()
+    finally:
+        train._leaf = real_leaf
+    assert made == []
+
+
 def test_cli_cuda_without_card_raises():
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -70,7 +144,7 @@ def test_cli_rejects_unported_flags():
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(["--cpu"])
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["--engine", "bruteforce"])
+        cli.build_parser().parse_args(["--engine", "bvh"])
 
 
 def test_dispatch_on_cpu_tensors_leaves_launch_counter():
@@ -105,7 +179,7 @@ def test_render_unported_engine_raises():
     scene, meta = compile_scene(scenes.build_scene(4), 16, 8,
                                 dtype=np.float32)
     cfg = RenderConfig(width=16, height=8, samples_per_pixel=1,
-                       engine="bruteforce")
+                       engine="wavefront_bvh")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render(scene, meta, cfg, device="cpu")
 

@@ -17,6 +17,7 @@ from raytracinginoneweekendincuda_tpu.core import image as jimage
 from raytracinginoneweekendincuda_tpu.models import scenes as jscenes
 from raytracinginoneweekendincuda_tpu.scene import api as japi
 from raytracinginoneweekendincuda_tpu.scene import compiler as jcomp
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _ramp(h, w):

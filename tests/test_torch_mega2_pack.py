@@ -18,6 +18,7 @@ from raytracinginoneweekendincuda_tpu.ops import mega2 as jmega2
 from raytracinginoneweekendincuda_tpu.scene import api
 from raytracinginoneweekendincuda_tpu.scene.compiler import compile_scene
 from raytracinginoneweekendincuda_tpu.utils.config import RenderConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("sid", range(10))

@@ -16,6 +16,7 @@ from raytracinginoneweekendincuda_tpu.scene.compiler import (
 from raytracinginoneweekendincuda_tpu.utils.config import (
     RenderConfig as JConfig,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 SCENES = (0, 1, 4, 6, 7, 8)
 

@@ -6,6 +6,7 @@ import pytest
 
 import torch_render_cases as cases
 from test_torch_mega2_render import jax_reference
+from torch_threads import one_torch_thread  # noqa: F401
 
 SCENES = (2, 3, 5, 9)
 

@@ -16,6 +16,7 @@ from raytracinginoneweekendincuda_tpu.ops import mega2 as jmega2
 from raytracinginoneweekendincuda_tpu.scene.compiler import (
     compile_scene as jcompile,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 W, H, SPP, K = 12, 8, 2, 6
 KW = dict(width=W, height=H, max_bounces=K, t_min=1e-3, seed=1984)

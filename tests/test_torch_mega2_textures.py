@@ -20,6 +20,7 @@ from raytracinginoneweekendincuda_tpu.scene import api as japi
 from raytracinginoneweekendincuda_tpu.ops.render import render as jrender
 from raytracinginoneweekendincuda_tpu.scene.compiler import compile_scene
 from raytracinginoneweekendincuda_tpu.utils.config import RenderConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", sorted(tex.SCENES))

@@ -28,6 +28,7 @@ from raytracinginoneweekendincuda_tpu.scene.compiler import (
     compile_scene as jcompile,
 )
 from torch_probe_scenes import H, SEED, T_MIN, W
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def jax_case(jdesc, tdesc, k, w=W, h=H):

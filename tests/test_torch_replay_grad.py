@@ -18,6 +18,7 @@ from torch_probe_scenes import (
     H, W, marble_probe, media_probe, port_trace_case, port_trace_replay,
 )
 from test_torch_replay import T_MIN, jax_case, port_replay
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 2
 EPS = 1e-3
@@ -88,7 +89,7 @@ def test_scene0_grads_fd_finite_and_zero_ray_cotangents():
     assert np.isfinite(g) and abs(g) > 0.0
     np.testing.assert_allclose(g, fd, rtol=5e-2)
 
-    params = ttrain.split_params(case["scene"])
+    params = ttrain.split_params(case["scene"], "cpu")
     rays = case["rays"].clone().requires_grad_(True)
     bg = params["camera"].background
     out = port_trace_replay(case, scene=ttrain.merge_params(case["scene"],

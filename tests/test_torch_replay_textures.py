@@ -11,6 +11,7 @@ from raytracinginoneweekendincuda_torch.models import scenes as tscenes
 from raytracinginoneweekendincuda_tpu.models import scenes as jscenes
 from raytracinginoneweekendincuda_tpu.ops.pallas_replay import replay_pallas
 from test_torch_replay import T_MIN, jax_case, port_replay
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 2
 

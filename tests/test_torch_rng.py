@@ -13,17 +13,55 @@ import pytest
 import torch
 
 from raytracinginoneweekendincuda_torch.core import rng as trng
-from raytracinginoneweekendincuda_torch.core.samplers import sqrt_f32
+from raytracinginoneweekendincuda_torch.core.samplers import (
+    sqrt_f32, unit_ball_xyz, unit_sphere_surface,
+)
 from raytracinginoneweekendincuda_torch.ops import raygen as traygen
 from raytracinginoneweekendincuda_tpu.core import rng as jrng
+from raytracinginoneweekendincuda_tpu.core import samplers as jsamplers
 from raytracinginoneweekendincuda_tpu.models import scenes
 from raytracinginoneweekendincuda_tpu.ops.raygen import generate_rays
 from raytracinginoneweekendincuda_tpu.scene.compiler import compile_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _words(n, seed):
     rs = np.random.default_rng(seed)
     return [rs.integers(0, 2 ** 32, n, dtype=np.uint32) for _ in range(4)]
+
+
+@pytest.mark.parametrize("dtype", (np.float32, np.float64))
+def test_uniform4_open4_bit_exact_vs_jax(dtype):
+    """[0, 1) and (0, 1] draws of one counter tuple, f32 and f64 (the XLA
+    engines' media draw ``uniform_open4`` and their f64 oracle runs)."""
+    w = _words(50_000, 5)
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    args = [torch.from_numpy(x.view(np.int32)) for x in w]
+    with np.errstate(over="ignore"):
+        want4 = jrng.uniform4(*w, float_dtype=dtype)
+        want_open = jrng.uniform_open4(*w, float_dtype=dtype)
+    for got, want in ((trng.uniform4(*args, dtype=tdt), want4),
+                      (trng.uniform_open4(*args, dtype=tdt), want_open)):
+        for a, b in zip(got, want):
+            assert a.dtype == tdt
+            np.testing.assert_array_equal(a.numpy(), b)
+    assert min(float(u.min()) for u in trng.uniform_open4(*args)) > 0.0
+
+
+def test_sphere_samplers_f64_vs_jax():
+    """The XLA engines' ball and sphere samplers at f64 against the JAX
+    package's (numpy backend), to rounding of libm's sin / cos."""
+    rs = np.random.default_rng(11)
+    u1, u2, u3 = (rs.uniform(0.0, 1.0, 4096) for _ in range(3))
+    u1[:2] = (0.0, 1.0 - 2.0 ** -24)            # the guarded roots' edges
+    u3[:1] = 0.0
+    t = [torch.from_numpy(u) for u in (u1, u2, u3)]
+    np.testing.assert_allclose(unit_ball_xyz(*t).numpy(),
+                               jsamplers.unit_ball(u1, u2, u3, xp=np),
+                               rtol=0, atol=1e-15)
+    np.testing.assert_allclose(unit_sphere_surface(*t[:2]).numpy(),
+                               jsamplers.unit_sphere_surface(u1, u2, xp=np),
+                               rtol=0, atol=1e-15)
 
 
 def test_pcg4d_and_unit_bit_exact_vs_numpy():

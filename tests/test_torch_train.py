@@ -26,6 +26,7 @@ from raytracinginoneweekendincuda_tpu.scene.compiler import (
     compile_scene as jcompile,
 )
 from raytracinginoneweekendincuda_tpu.utils.config import RenderConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 W, H, SPP, K, LR, SEED = 12, 8, 2, 4, 0.05, 1984
 
@@ -73,7 +74,7 @@ def test_one_step_matches_jax(setup):
     jstate, jloss = jstep(jstate, pix, jnp.asarray(tgt))
     want = jax.tree.map(np.asarray, jstate.params)
 
-    state, step = _port_step(ts0, tm, ttrain.params_from_numpy(p0))
+    state, step = _port_step(ts0, tm, ttrain.params_from_numpy(p0, "cpu"))
     state, loss = step(state, pix, torch.from_numpy(tgt))
     got = ttrain.params_to_numpy(state.params)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
@@ -87,7 +88,7 @@ def test_one_step_matches_jax(setup):
 
 def test_four_steps_reduce_the_loss(setup):
     _, _, ts0, tm, pix, tgt = setup
-    state, step = _port_step(ts0, tm, ttrain.split_params(ts0))
+    state, step = _port_step(ts0, tm, ttrain.split_params(ts0, "cpu"))
     losses = []
     for _ in range(4):
         state, loss = step(state, pix, torch.from_numpy(tgt))
@@ -99,8 +100,8 @@ def test_four_steps_reduce_the_loss(setup):
 
 def test_params_from_numpy_round_trips_split_params(setup):
     _, _, ts0, _, _, _ = setup
-    params = ttrain.split_params(ts0)
-    again = ttrain.params_from_numpy(ttrain.params_to_numpy(params))
+    params = ttrain.split_params(ts0, "cpu")
+    again = ttrain.params_from_numpy(ttrain.params_to_numpy(params), "cpu")
     for a, b in zip(ttrain.parameter_list(params),
                     ttrain.parameter_list(again)):
         assert a.requires_grad and b.requires_grad and a.is_leaf

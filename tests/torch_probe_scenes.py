@@ -79,8 +79,7 @@ def port_trace_replay(case, scene=None, rays=None, bg=None,
     scene = case["scene"] if scene is None else scene
     tt = trp.replay_table(
         scene, case["meta"], case["tab"],
-        kernel_space=tmega2.mega2_kernel_id_space(case["tab"], case["meta"]),
-        device=case["rays"].device)
+        kernel_space=tmega2.mega2_kernel_id_space(case["tab"], case["meta"]))
     return fn(
         tt, case["rays"] if rays is None else rays, case["tape"],
         case["pix_ctr"], 0, case["bg"] if bg is None else bg, t_min=T_MIN)
