@@ -5,13 +5,15 @@
 Builds the port's CUDA kernels from the sources in this checkout -- K1
 (``csrc/mega2_render.cu``), K2 (``csrc/mega2_trace.cu``), K3
 (``csrc/replay_fwd.cu``), K4 (``csrc/replay_bwd.cu``), K5
-(``csrc/mega_bounces.cu``) and K6 (``csrc/closest_geo.cu``), one nvcc
-each, all started together -- and drives the port's three paths: the
-render (the CLI's ``ops/render.render``, engine ``mega2``, at the
+(``csrc/mega_bounces.cu``), K6 (``csrc/closest_geo.cu``) and the probes
+P1-P3 (``csrc/probe_pair.cu``, ``probe_intmul.cu``, ``probe_mosaic.cu``),
+one nvcc each, all started together -- and drives the port's four paths:
+the render (the CLI's ``ops/render.render``, engine ``mega2``, at the
 reference's headline config), the training step
-(``parallel/train.make_train_step_mega2``) and the XLA-family engines
-(``render`` with ``wavefront_pallas`` and ``mega``), holding every kernel
-against its plain PyTorch version.  Phases:
+(``parallel/train.make_train_step_mega2``), the XLA-family engines
+(``render`` with ``wavefront_pallas`` and ``mega``) and the probe tools
+(``tools/probe_*.main``), holding every kernel against its plain PyTorch
+version.  Phases:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the kernels' build times and ptxas reports;
@@ -56,7 +58,23 @@ against its plain PyTorch version.  Phases:
     the plain ``wavefront`` frame, all on the card; K6 against its plain
     version on the main path's first pool (131072 camera rays); scene 9
     at 1440x720@10 through ``wavefront_pallas``, timed and held against
-    K1's frame.
+    K1's frame;
+13. the probes: ``main()`` of ``tools/probe_pair`` (C 512, REP 100 of the
+    tool's 500, SUB 8, all 18 variants), ``probe_intmul`` (200 k of the
+    tool's 5 M iterations) and ``probe_mosaic`` on the card, with every
+    probe wrapper's launch count over those runs; then each P1 variant
+    identical to its plain version at that shape (two copies of the
+    block), the ``full`` / ``noreduce`` / ``dotsonly`` loops timed at C and
+    2C and read in the SASS, K1's ns a sphere pair (phase 6) beside P1
+    ``direct``'s; each P2 flavour identical to its plain version at 2000
+    iterations, its loop's IMADs counted in the SASS (8 for i32mul and
+    u32mul, 4 for u32mix; the phase fails without cuobjdump or a loop);
+    each of the 13 P3 cases identical to its plain version (trig within
+    2 ulp) on the tool's inputs and on seeded random ones of the same
+    shapes, its kernel, plain version and library call timed (P3 in
+    batches of back-to-back launches behind a sleep kernel, with CUDA
+    events: the profiler sees no device records after phase 12's
+    340 k-launch profiled frame).
 
 Prints the kernel record and the card on lines of their own, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, before that
@@ -66,8 +84,11 @@ line, if any phase fails or there is no CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import collections
 import json
 import os
+import re
+import subprocess
 import sys
 import tempfile
 import time
@@ -93,6 +114,10 @@ from raytracinginoneweekendincuda_torch.ops.raygen import (
 )
 from raytracinginoneweekendincuda_torch.ops.render import finalize, render
 from raytracinginoneweekendincuda_torch.parallel import train
+from raytracinginoneweekendincuda_torch.tools import (
+    probe_intmul, probe_mosaic, probe_pair,
+)
+from raytracinginoneweekendincuda_torch.tools.common import best_ms
 from raytracinginoneweekendincuda_torch.utils.benchmark import card_line
 
 TOL_ABOVE = 1e-4          # a pixel "differs" when a channel moves more
@@ -141,6 +166,31 @@ OPS_REPLAY, OPS_REPLAY_BWD = 160, 570
 # interior test, compares) 39; the rest of a K5 bounce (record, texture,
 # RNG, scatter) 120, a medium 45.
 OPS_XSPHERE, OPS_XQUAD, OPS_XBOUNCE, OPS_XMEDIUM = 28, 39, 120, 45
+# The probes' main path: P1 at C 512, SUB 8 with REP cut from the tool's 500
+# to 100; P2 with its 5 M iterations cut to 200 k, its records' ms and
+# bound at that count; P2 against its plain version (a Python loop of ~40
+# launches an iteration) at 2000.
+PAIR_MAIN = (512, 100, 8)
+INTMUL_MAIN, INTMUL_CHECK = 200_000, 2_000
+TRIG_ULP = 2              # P3 trig: kernel against the plain version
+# FP32 ops a pair of each P1 kernel variant (csrc/probe_pair.cu; a compare
+# or select one op): the two coefficient dots 64 (k8dot 32; nodots 2; the
+# direct quadratic 15), then discriminant 3, root 1, keys 2, select 5,
+# reduce 2 (noselect: one add for the select); per lane-iteration 17
+# (tweak, od, features, result).  noreduce and dotsonly need only
+# primitive 0.
+OPS_PAIR = {"full": 77, "bf16dot": 77, "nodots": 15, "nosqrt": 77,
+            "noselect": 73, "noidx": 77, "noreduce": 75, "dotsonly": 65,
+            "k8dot": 45, "direct": 28}
+OPS_PAIR_ITER = 17
+# coefficient loads a pair (the SASS's loop is read per pair with them)
+LOADS_PAIR = {"nodots": 2, "k8dot": 16, "direct": 4}
+LOADS_PAIR.update({v: 32 for v in OPS_PAIR if v not in LOADS_PAIR})
+# P2: instructions of a chain iteration (FP32 for f32mul, INT32 otherwise)
+OPS_INTMUL = {"f32mul": 16, "i32mul": 8, "u32mul": 8, "u32addxor": 24,
+              "u32mix": 12}
+INT32_LANES = 64          # INT32 lanes of a Hopper SM
+PROBE_BATCH = 20          # back-to-back launches a timed P3 batch
 
 
 def synthetic_texture() -> np.ndarray:
@@ -283,7 +333,10 @@ LOADERS = {"mega2_render": mega2.load_kernel,
            "replay_fwd": rc.load_fwd_kernel,
            "replay_bwd": rc.load_bwd_kernel,
            "mega_bounces": mega.load_kernel,
-           "closest_geo": pallas_hit.load_kernel}
+           "closest_geo": pallas_hit.load_kernel,
+           "probe_pair": probe_pair.load_kernel,
+           "probe_intmul": probe_intmul.load_kernel,
+           "probe_mosaic": probe_mosaic.load_kernel}
 
 
 def build_kernels() -> dict:
@@ -874,6 +927,280 @@ def phase_xla_frames(dev, card: str) -> dict:
     return {"closest_geo": k6,
             "mega_bounces_launches": launches["mega_bounces_kernel"]}
 
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
+    return float(res.stdout.strip().splitlines()[0])
+
+
+def sass_loops(lib_path: str) -> dict:
+    """{kernel template id: opcode counts of its innermost loop} of the
+    ``*_kernel<N>`` functions in a built library, from ``cuobjdump -sass``
+    (the loop: the shortest span that a backward branch closes).  Raises
+    where the toolkit has no cuobjdump beside nvcc."""
+    from raytracinginoneweekendincuda_torch.utils.cuda_build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise AssertionError(f"no cuobjdump beside nvcc ({tool}): the "
+                             f"probes' SASS cannot be checked")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    loops = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        tid = re.search(r"kernelILi(\d+)E", fn.split("\n", 1)[0])
+        if not tid:
+            continue
+        ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+            r"([^;]*);", fn)]
+        spans = [(int(m.group(1), 16), a) for a, op, rest in ins
+                 if op == "BRA" and (m := re.search(r"0x([0-9a-f]+)", rest))
+                 and int(m.group(1), 16) < a]
+        if spans:
+            lo, hi = min(spans, key=lambda sp: sp[1] - sp[0])
+            loops[int(tid.group(1))] = collections.Counter(
+                op for a, op, _ in ins if lo <= a <= hi)
+    return loops
+
+
+def build_path(name: str) -> str:
+    """The built library of ``csrc/<name>.cu`` (loaded in phase 2)."""
+    return LOADERS[name]()[1]["path"]
+
+
+def sum_bounds(parts) -> tuple:
+    """The bound of a set of launches: the sum of their bounds, labelled by
+    the kind that holds most of it."""
+    by = collections.Counter()
+    for ms, kind in parts:
+        by[kind] += ms
+    return sum(by.values()), by.most_common(1)[0][0]
+
+
+# library calls that compute a P3 probe's function (timed, used nowhere in
+# the port): (case inputs) -> result
+PROBE_LIBRARY = {
+    "gather_lane": lambda t, i: torch.take_along_dim(t[:, :128], i, 1),
+    "gather_lane_full": lambda t, i: torch.take_along_dim(t, i, 1),
+    "gather_sublane": lambda t, i: torch.take_along_dim(t, i, 0),
+    "dynamic_sublane_slice_dot": lambda a, b, c: torch.matmul(
+        a.view(c, -1, a.shape[1]), b).sum(0),
+    "f32_matmul": lambda a, b, c: torch.matmul(a, b),
+    "transposed_onehot_dot": lambda w, a, hot: torch.matmul(
+        a.T, (w == hot).float()),
+    "gather_wide(256)": lambda t, i: torch.take_along_dim(t, i, 1),
+    "gather_wide(65536)": lambda t, i: torch.take_along_dim(t, i, 1),
+    "gather_wide(256, rows=24)": lambda t, i: torch.take_along_dim(t, i, 1),
+    "gather_int32_wide(524288)": lambda t, i: torch.take_along_dim(t, i, 1),
+    "trig": lambda x: torch.acos(torch.clamp(x, -1.0, 1.0))
+    + torch.atan2(x, 1.0 - x),
+}
+
+
+def probe_ops(name: str, args, out) -> int:
+    """FP32 ops of a P3 case: the dots' multiply-adds and the accumulated
+    gathers' adds; the other probes only move bytes."""
+    if name in ("dynamic_sublane_slice_dot", "f32_matmul"):
+        a, _, chunks = args
+        return 2 * out.numel() * a.shape[1] * chunks
+    if name == "transposed_onehot_dot":
+        return 2 * out.numel() * args[1].shape[0]
+    if name == "gather_timing":
+        return args[2] * out.numel()
+    return 0
+
+
+def phase_probes(dev, k1_pair) -> dict:
+    """P1-P3: the three tools' main() on the card (the counted run), then
+    every kernel against its plain version; returns the three records."""
+    wrappers = {"probe_pair": (probe_pair.probe_pair_cuda,),
+                "probe_intmul": (probe_intmul.intmul_chain_cuda,),
+                "probe_mosaic": probe_mosaic.WRAPPERS}
+    for ws in wrappers.values():
+        for w in ws:
+            w.launches = 0
+    C, REP, SUB = PAIR_MAIN
+    t0 = time.perf_counter()
+    pair = probe_pair.main([str(C), str(REP), str(SUB)])
+    intmul = probe_intmul.main(["--iters", str(INTMUL_MAIN)])
+    probe_mosaic.main([])
+    launches = {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
+    idle = [w.__name__ for ws in wrappers.values() for w in ws
+            if w.launches == 0]
+    print(f"  the tools' main(): {time.perf_counter() - t0:.1f} s; launches "
+          + ", ".join(f"{w.__name__} {w.launches}" for ws in wrappers.values()
+                      for w in ws), flush=True)
+    if idle:
+        raise AssertionError(f"the probes' main path never launched {idle}")
+    recs = {}
+
+    # P1: every variant against its plain version at the main path's shape;
+    # two copies of the block, each equal to the plain version
+    coef, ray = probe_pair.make_inputs(C, SUB, dev)
+    lanes = SUB * probe_pair.R
+    ms_sum = plain_sum = 0.0
+    bounds = []
+    for v in probe_pair.VARIANTS:
+        kv = probe_pair.KERNEL_OF[v]
+        got = probe_pair.probe_pair_cuda(coef, ray, v, REP, copies=2)
+        plain_ms, want = once_ms(
+            lambda: probe_pair.probe_pair_plain(coef, ray, v, REP))
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        if not all(np.array_equal(g, want, equal_nan=True) for g in got):
+            raise AssertionError(f"P1 {v}: the kernel differs from the "
+                                 f"plain version")
+        n_pairs = 1 if kv in ("noreduce", "dotsonly") else C
+        b = bound(nbytes(coef, ray) + 4 * lanes, lanes * REP * (
+            OPS_PAIR_ITER + n_pairs * OPS_PAIR[kv]))
+        ms_sum, plain_sum = ms_sum + pair[v]["ms"], plain_sum + plain_ms
+        bounds.append(b)
+        print(f"  P1 {v} (kernel {kv}): identical to the plain version; "
+              f"{pair[v]['ms']:.3f} ms (main's best of 5), plain "
+              f"{plain_ms:.1f} ms, bound {b[0]:.4f} ms ({b[1]})", flush=True)
+    recs["probe_pair"] = dict(launches=launches["probe_pair"],
+                              max_abs_err=0.0, ms=ms_sum, plain_ms=plain_sum,
+                              bound=sum_bounds(bounds))
+    coef2, ray2 = probe_pair.make_inputs(2 * C, SUB, dev)
+    for v in ("full", "noreduce", "dotsonly"):
+        one, two = (best_ms(lambda c=c, r=r: probe_pair.probe_pair_cuda(
+            c, r, v, REP), dev, 3) for c, r in ((coef, ray), (coef2, ray2)))
+        print(f"  P1 {v}: {one:.3f} ms at C {C}, {two:.3f} ms at C {2 * C} "
+              f"(x{two / one:.2f}: the loop over C is "
+              f"{'kept' if two > 1.5 * one else 'removed'})", flush=True)
+    for kv, ops in sorted(sass_loops(build_path("probe_pair")).items()):
+        name = [k for k, i in probe_pair.KERNEL_IDS.items() if i == kv][0]
+        pairs = ops["LDG.E.CONSTANT"] / LOADS_PAIR[name]    # unrolled pairs
+        print(f"  P1 SASS, {name}'s pair loop: {pairs:.0f} pair(s) an "
+              f"iteration, {sum(ops.values()) / pairs:.0f} instructions a "
+              f"pair: " + ", ".join(f"{op} {n / pairs:.0f}" for op, n in
+                                    ops.most_common(6)), flush=True)
+    k1_ms, k1_lb, k1_sph = k1_pair
+    k1_ns = k1_ms * 1e6 / (k1_lb * k1_sph)
+    d = pair["direct"]
+    print(f"  K1: {k1_ns:.5f} ns a sphere pair ({k1_ms:.2f} ms over {k1_lb} "
+          f"lane-bounces x {k1_sph} spheres, the whole card); P1 direct "
+          f"{d['ns_pair']:.5f} ns a pair on one block, "
+          f"{1 / d['card_gpair_s']:.5f} over a full wave of "
+          f"{d['card_copies']} blocks ({d['card_gpair_s']:.1f} Gpair/s); "
+          f"K1 {k1_ns * d['card_gpair_s']:.1f}x direct's full-wave time a "
+          f"pair", flush=True)
+
+    # P2: bit-equal to the plain version at INTMUL_CHECK; the loops' SASS
+    x = probe_intmul.make_input(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_mhz()
+    int_rate = sms * INT32_LANES * clock * 1e6
+    print(f"  P2 INT32 rate {int_rate / 1e12:.2f} T ops/s ({sms} SMs x "
+          f"{INT32_LANES} lanes x {clock:.0f} MHz, clocks.max.sm)",
+          flush=True)
+    ms_sum = plain_sum = 0.0
+    bounds = []
+    for f in probe_intmul.FLAVOURS:
+        got = probe_intmul.intmul_chain_cuda(x, f, INTMUL_CHECK, copies=2)
+        plain_ms, want = once_ms(
+            lambda: probe_intmul.intmul_chain_plain(x, f, INTMUL_CHECK))
+        got = got.view(torch.int32).cpu().numpy()
+        if not all(np.array_equal(g, want.view(torch.int32).cpu().numpy())
+                   for g in got):
+            raise AssertionError(f"P2 {f}: the kernel differs from the "
+                                 f"plain version")
+        r = intmul[f]
+        ops = x.numel() * INTMUL_MAIN * OPS_INTMUL[f]
+        b = (ops / (PEAK_FP32 if f == "f32mul" else int_rate) * 1e3,
+             "operations")
+        ms_sum, plain_sum = ms_sum + r["ms"], plain_sum + plain_ms
+        bounds.append(b)
+        print(f"  P2 {f}: identical to the plain version at {INTMUL_CHECK} "
+              f"iterations (plain {plain_ms:.1f} ms); main at "
+              f"{INTMUL_MAIN}: {r['ms']:.3f} ms, bound {b[0]:.4f} ms, "
+              f"{r['ns_op']:.3f} ns/[8x128]-op on one block, "
+              f"{r['card_ns_op']:.4f} over {r['card_copies']} blocks",
+              flush=True)
+    recs["probe_intmul"] = dict(launches=launches["probe_intmul"],
+                                max_abs_err=0.0, ms=ms_sum,
+                                plain_ms=plain_sum, bound=sum_bounds(bounds),
+                                iters=INTMUL_MAIN, plain_iters=INTMUL_CHECK)
+    loops = sass_loops(build_path("probe_intmul"))
+    for f in probe_intmul.FLAVOURS:
+        ops = loops.get(probe_intmul.FLAVOUR_IDS[f])
+        if ops is None:
+            raise AssertionError(f"P2 {f}: no loop in the kernel's SASS")
+        print(f"  P2 SASS, {f}'s loop: " + ", ".join(
+            f"{op} {n}" for op, n in ops.most_common(5)), flush=True)
+        imads = ops.get("IMAD", 0)
+        want_imads = {"i32mul": 8, "u32mul": 8, "u32mix": 4}.get(f)
+        if want_imads and imads != want_imads:
+            raise AssertionError(f"P2 {f}: {imads} IMADs an iteration, not "
+                                 f"{want_imads}: the compiler changed the "
+                                 f"chain")
+
+    # P3: every case against its plain version, on the tool's inputs and on
+    # seeded random ones; kernel, plain and library timed on the tool's
+    p3 = {}
+    err = 0.0
+    for name, case in probe_mosaic.CASES.items():
+        for what, inputs in (("random", case.random),
+                             ("tool's", case.inputs)):
+            args = inputs(dev)
+            got = case.cuda(*args)
+            plain_ms, want = once_ms(lambda: case.plain(*args))
+            g, w = got.cpu().numpy(), want.cpu().numpy()
+            if name == "trig":
+                ok = (np.abs(g - w) <= TRIG_ULP * np.spacing(np.abs(w))).all()
+            else:
+                ok = np.array_equal(g, w)
+            if not ok:
+                raise AssertionError(
+                    f"P3 {name}: the kernel differs from the plain version "
+                    f"on the {what} inputs")
+            err = max(err, float(np.abs(g.astype(np.float64) - w).max()))
+        # args, got and plain_ms are now the tool's inputs'
+        kernel = case.cuda.__name__.replace("_cuda", "_kernel")
+        ms = best_ms(lambda: case.cuda(*args), dev, 5, PROBE_BATCH)
+        lib = PROBE_LIBRARY.get(name)
+        lib_ms = None
+        if lib is not None:
+            largs = list(args)
+            if "gather" in name:           # torch indexes with int64
+                largs[1] = args[1].long()
+            lib_ms = best_ms(lambda: lib(*largs), dev, 5, PROBE_BATCH)
+        tensors = [a for a in args if torch.is_tensor(a)]
+        b = bound(nbytes(*tensors, got), probe_ops(name, args, got))
+        p3[name] = dict(ms=ms, plain_ms=plain_ms, bound=b, library_ms=lib_ms)
+        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        same = f"within {TRIG_ULP} ulp" if name == "trig" else "identical"
+        print(f"  P3 {name}: {same} on the tool's and on random inputs; "
+              f"{kernel} {ms:.4f} ms (back to back), plain {plain_ms:.2f} "
+              f"ms, library {lib_txt}, bound {b[0]:.6f} ms ({b[1]})",
+              flush=True)
+    # the record sums the cases with a library call, so that its ms, plain,
+    # bound and library are one workload; the others stand beside it
+    with_lib = [n for n, r in p3.items() if r["library_ms"] is not None]
+    recs["probe_mosaic"] = dict(
+        launches=launches["probe_mosaic"], max_abs_err=err,
+        ms=sum(p3[n]["ms"] for n in with_lib),
+        plain_ms=sum(p3[n]["plain_ms"] for n in with_lib),
+        bound=sum_bounds(p3[n]["bound"] for n in with_lib),
+        library_ms=sum(p3[n]["library_ms"] for n in with_lib),
+        cases=with_lib,
+        without_library={n: dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                                 bound_ms=r["bound"][0])
+                         for n, r in p3.items() if n not in with_lib})
+    print(f"  records: P1 sums its 18 variants at C {C}, REP {REP}, SUB "
+          f"{SUB}; P2 its 5 flavours at {INTMUL_MAIN} iterations (plain at "
+          f"{INTMUL_CHECK}); P3 the {len(with_lib)} cases with a library "
+          f"call, the other {len(p3) - len(with_lib)} beside them",
+          flush=True)
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -989,6 +1316,7 @@ def main() -> int:
                      k1_lb * pair_ops(tab))
     print(f"  K1 bound at scene 0 {w}x{h}@{spp}: {k1_lb} lane-bounces, "
           f"{k1_bound[0]:.3f} ms ({k1_bound[1]})", flush=True)
+    k1_pair = (min(k1_s, k1_s2) * 1e3, k1_lb, int((tab.sph[:, 9] > 0.5).sum()))
 
     w, h, spp, K = TRACE
     print(f"[7] K2 vs plain, all scenes at {w}x{h}, spp {spp}, K {K}",
@@ -1025,6 +1353,10 @@ def main() -> int:
     recs["mega_bounces"] = dict(launches=xla["mega_bounces_launches"], **k5)
     recs["closest_geo"] = xla["closest_geo"]
 
+    print("[13] the probes P1-P3: the tools' main() on the card, then every "
+          "kernel against its plain version", flush=True)
+    recs.update(phase_probes(dev, k1_pair))
+
     if any(m.startswith(("jax", "raytracinginoneweekendincuda_tpu"))
            for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
@@ -1042,6 +1374,9 @@ def main() -> int:
         "mega_bounces": "raytracinginoneweekendincuda_tpu/ops/mega.py:218",
         "closest_geo":
             "raytracinginoneweekendincuda_tpu/ops/pallas_hit.py:106",
+        "probe_pair": "tools/probe_pair.py:45",
+        "probe_intmul": "tools/probe_intmul.py:19",
+        "probe_mosaic": "tools/probe_mosaic.py:39",
     }
     print(json.dumps({"kernels": [{
         "name": kname,
@@ -1054,7 +1389,9 @@ def main() -> int:
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0],
         "bound_by": r["bound"][1],
-        "library_ms": None,
+        "library_ms": r.get("library_ms"),
+        **{k: r[k] for k in ("iters", "plain_iters", "cases",
+                             "without_library") if k in r},
     } for kname, r in recs.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """PyTorch port on the card: each kernel against its plain PyTorch version
 -- K1 (csrc/mega2_render.cu), K2 (csrc/mega2_trace.cu), K3 / K4
 (csrc/replay_fwd.cu, csrc/replay_bwd.cu) against ``replay_plain`` and its
-autograd, K5 (csrc/mega_bounces.cu) and K6 (csrc/closest_geo.cu).  Imports only the port (the card's machine has no JAX).  Marked
+autograd, K5 (csrc/mega_bounces.cu), K6 (csrc/closest_geo.cu) and the
+probes P1-P3 (csrc/probe_pair.cu, probe_intmul.cu, probe_mosaic.cu).
+Imports only the port (the card's machine has no JAX).  Marked
 ``cuda``; skipped where there is no CUDA device (the kernels have no CPU
 build).  Run on a card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda -p no:xdist``."""
@@ -20,6 +22,9 @@ from raytracinginoneweekendincuda_torch.ops.render import finalize
 from raytracinginoneweekendincuda_torch.models import scenes
 from raytracinginoneweekendincuda_torch.scene import api
 from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
+from raytracinginoneweekendincuda_torch.tools import (
+    probe_intmul, probe_mosaic, probe_pair,
+)
 from raytracinginoneweekendincuda_torch.utils.config import RenderConfig
 
 pytestmark = pytest.mark.cuda
@@ -292,3 +297,58 @@ def test_xla_engines_render_on_card(dev):
         np.testing.assert_allclose(img, render(scene, meta, cfg,
                                                device="cpu"),
                                    atol=1e-5, rtol=0)
+
+
+# ---- the probes P1-P3 (tools/probe_pair.py, probe_intmul.py,
+#      probe_mosaic.py): each kernel against its plain version at the
+#      probe's TPU shape
+
+@pytest.mark.parametrize("variant", probe_pair.VARIANTS)
+def test_probe_pair_matches_plain_on_card(variant, dev):
+    """Bit-equal (NaN where the plain version has NaN): the plain version
+    sums the dots in the kernel's order and neither contracts FMAs.  C 512,
+    SUB 8 (REP cut to 3), on both blocks of a two-copy launch."""
+    coef, ray = probe_pair.make_inputs(512, 8, dev)
+    before = probe_pair.probe_pair_cuda.launches
+    got = probe_pair.probe_pair_cuda(coef, ray, variant, 3, copies=2)
+    want = probe_pair.probe_pair_plain(coef, ray, variant, 3).cpu().numpy()
+    torch.cuda.synchronize()
+    assert probe_pair.probe_pair_cuda.launches == before + 1
+    for block in got.cpu().numpy():
+        np.testing.assert_array_equal(block, want)
+
+
+@pytest.mark.parametrize("flavour", probe_intmul.FLAVOURS)
+def test_probe_intmul_matches_plain_on_card(flavour, dev):
+    x = probe_intmul.make_input(dev)
+    got = probe_intmul.intmul_chain_cuda(x, flavour, 50, copies=2)
+    want = probe_intmul.intmul_chain_plain(x, flavour, 50)
+    torch.cuda.synchronize()
+    for block in got:
+        assert torch.equal(block.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("inputs", ["tool", "random"])
+@pytest.mark.parametrize("name", list(probe_mosaic.CASES))
+def test_probe_mosaic_matches_plain_on_card(name, inputs, dev):
+    """Bit-equal; trig within 2 ulp (the kernel's acosf / atan2f against
+    PyTorch's).  On the tool's inputs and on the case's seeded random
+    ones, where operands, ids and indices vary."""
+    case = probe_mosaic.CASES[name]
+    args = (case.inputs if inputs == "tool" else case.random)(dev)
+    before = case.cuda.launches
+    got = case.dispatch(*args).cpu().numpy()
+    want = case.plain(*args).cpu().numpy()
+    assert case.cuda.launches == before + 1
+    if name == "trig":
+        assert (np.abs(got - want) <= 2 * np.spacing(np.abs(want))).all()
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("tool,argv", [
+    (probe_pair, ["64", "2", "8", "full,wide8_dotsonly,direct"]),
+    (probe_intmul, ["--iters", "100"]),
+    (probe_mosaic, [])], ids=["probe_pair", "probe_intmul", "probe_mosaic"])
+def test_probe_tools_run_on_card(tool, argv, dev):
+    assert tool.main(argv)

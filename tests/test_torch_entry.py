@@ -34,6 +34,9 @@ def test_port_imports_no_jax():
         "                                                pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "tools = {pkg.__name__ + '.tools.' + t for t in\n"
+        "         ('probe_pair', 'probe_intmul', 'probe_mosaic')}\n"
+        "assert tools <= set(names), names\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke',\n"
         "                                              'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -45,10 +48,11 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and "clean" in r.stdout, r.stderr[-2000:]
-    # 36 modules, the XLA engine family's (core/vecmath, ops/hit, shade,
+    # 41 modules, the XLA engine family's (core/vecmath, ops/hit, shade,
     # textures, perlin, integrator, dispatch, wavefront, pallas_hit, mega)
-    # among them
-    assert int(r.stdout.split()[-1]) >= 36, r.stdout
+    # and the probe tools' (tools/, common, probe_pair, probe_intmul,
+    # probe_mosaic) among them
+    assert int(r.stdout.split()[-1]) >= 41, r.stdout
 
 
 def test_cli_cpu_writes_ppm(tmp_path):
@@ -131,6 +135,20 @@ def test_entry_points_have_no_cpu_default(entry):
     finally:
         train._leaf = real_leaf
     assert made == []
+
+
+@pytest.mark.parametrize("tool", ("probe_pair", "probe_intmul",
+                                  "probe_mosaic"))
+def test_probe_tools_without_card_raise(tool):
+    """The probe tools run on the card unless given ``--device cpu``
+    (tests/test_torch_probes.py runs them so)."""
+    import importlib
+
+    _no_card()
+    mod = importlib.import_module(
+        f"raytracinginoneweekendincuda_torch.tools.{tool}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
 
 
 def test_cli_cuda_without_card_raises():
