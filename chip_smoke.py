@@ -19,14 +19,23 @@ version.  Phases:
 2. the kernels' build times and ptxas reports;
 3. pcg4d draws and ``generate_rays`` on the card, bit-exact against the
    numpy uint32 reference / the CPU port;
-4. K1 against ``render_radiance_plain`` on the card for all ten scenes at
-   64x32@4, max_bounces 50 (at most 1% of pixels above 1e-4, mean < 2e-3);
+4. K1 against ``render_radiance_plain`` on the card, radiance sums
+   array-equal: all ten scenes at 64x32@4, max_bounces 50, scene 0's
+   pixel ids permuted, padded with -1, 31 and 389 of them, and the large
+   world (``models/scenes.sphere_field``, 10,000 spheres at 32x16@2:
+   rows in global memory, the others' in shared memory), each with K1's
+   launch shape;
 5. the main path: scene 0 at 1440x720@10 through ``render``, best of 3,
-   with K1's launch count over that run; the PPM is written and checked,
-   and K1 is compared with the plain version on every 97th pixel id;
-6. scene 9 at 360x180@10 through K1 against the plain version on every
-   97th pixel id, and K1 and the plain version timed at scene 0 360x180@10
-   (K1's bound from that run's lane-bounces);
+   with K1's launch count over that run; the PPM is written and checked;
+   K1 alone on the frame (best of 3) and the u8 frame's SHA-256; K1's
+   sums array-equal to the plain version's on the whole frame (more ids
+   than lanes, so lanes refill), and the plain version's time;
+6. K1's bound at the main path's frame, from its lane-bounces counted
+   from K2's tapes in chunks of 72 rows, and the lane shares of a nested
+   and a flat loop (`tools/lane_share.py`); scene 9 at 360x180@10 through
+   K1 against the plain version on every 97th pixel id, and K1 and the
+   plain version timed at scene 0 360x180@10 with that frame's bound and
+   lane shares;
 7. K2 against ``trace_tapes_plain``: all ten scenes at 64x32, spp 2, K 8
    (at most 0.1% of lanes may differ), and K2's in-kernel raygen against
    external rays from ``generate_rays`` on a pinhole scene;
@@ -85,6 +94,7 @@ from __future__ import annotations
 
 import dataclasses
 import collections
+import hashlib
 import json
 import os
 import re
@@ -100,7 +110,7 @@ import torch
 from raytracinginoneweekendincuda_torch.core import rng
 from raytracinginoneweekendincuda_torch.core.image import write_ppm
 from raytracinginoneweekendincuda_torch.models.scenes import (
-    SCENE_NAMES, build_scene,
+    SCENE_NAMES, build_scene, sphere_field,
 )
 from raytracinginoneweekendincuda_torch.scene import api
 from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
@@ -118,15 +128,21 @@ from raytracinginoneweekendincuda_torch.tools import (
     probe_intmul, probe_mosaic, probe_pair,
 )
 from raytracinginoneweekendincuda_torch.tools.common import best_ms
+from raytracinginoneweekendincuda_torch.tools.lane_share import (
+    lane_shares, path_bounces,
+)
 from raytracinginoneweekendincuda_torch.utils.benchmark import card_line
 
 TOL_ABOVE = 1e-4          # a pixel "differs" when a channel moves more
 MAX_FRAC_ABOVE = 0.01     # at most 1% of pixels may differ
 MAX_MEAN = 2e-3           # mean absolute difference over all channels
 STRIDE = 97               # pixel-id stride of the main-path check subset
+TAPE_CHUNK = 1440 * 72    # pixels a K2 trace when counting a frame's paths
+NO_SPILLS = ("mega2_render", "mega_bounces")   # sized to hold no spills
 MAIN = (1440, 720, 10)    # the main path's frame: width, height, spp
 SMALL = (64, 32, 4)       # every scene, K1 against the plain version
 SIDE = (360, 180, 10)     # scene 9, and the K1 / plain timing of scene 0
+FIELD = (32, 16, 2)       # the large world's frame: width, height, spp
 TRACE = (64, 32, 2, 8)    # every scene, K2 against the plain version
 REPLAY = (64, 32, 1, 8)   # every scene, K3 / K4 against the plain version
 TRAIN = (640, 360, 8, 8)  # the training step: width, height, spp, K
@@ -364,20 +380,32 @@ def pair_ops(tab) -> int:
             + tab.n_media * OPS_MEDIUM + OPS_BOUNCE)
 
 
-def lane_bounces(tab, tape: torch.Tensor) -> int:
-    """Bounces the lanes of a tape [K, L] ran: every hit, plus the miss
-    that ended a path before K (a path's first -1 after a hit that is not
-    a light).  A metal ray absorbed by its own surface ends the same way
-    and is counted too, so the count is at most that many too high."""
-    K = tape.shape[0]
-    hit = tape >= 0
-    first = torch.where(hit.all(0), K, (~hit).to(torch.int32).argmax(0))
-    prev = tape.gather(0, (first - 1).clamp_min(0)[None].long())[0]
-    geo = (prev >= 0) & (prev < tab.np_rows)
-    light = geo & (tab.attr[prev.clamp(0, tab.np_rows - 1).long(), 10]
-                   == 3.0)
-    ended_by_miss = (first < K) & ((first == 0) | ~light)
-    return int(hit.sum()) + int(ended_by_miss.sum())
+def path_counts(tab, fp, pix: torch.Tensor,
+                chunk: int = TAPE_CHUNK) -> torch.Tensor:
+    """Bounces each (sample, pixel) path of the frame ran [spp, P], from
+    K2's tapes of the same lanes at the same depth, ``chunk`` pixels (all
+    their samples) a trace."""
+    counts = torch.empty((fp.spp, pix.shape[0]), dtype=torch.int32,
+                         device=pix.device)
+    for a in range(0, pix.shape[0], chunk):
+        part = pix[a:a + chunk]
+        lane_pix, lane_samp = mega2.tape_lanes(part, fp.spp)
+        tape = mega2.trace_tapes_cuda(tab, lane_pix, lane_samp, fp)
+        counts[:, a:a + part.shape[0]] = path_bounces(
+            tape, tab.attr, tab.np_rows).reshape(fp.spp, -1)
+    return counts
+
+
+def k1_equal(tab, fp, pix: torch.Tensor, what: str) -> None:
+    """K1's radiance sums against the plain version's: array-equal."""
+    got = mega2.render_radiance_cuda(tab, pix, fp).cpu().numpy()
+    want = mega2.render_radiance_plain(tab, pix, fp).cpu().numpy()
+    same = int((got == want).all(1).sum())
+    print(f"  {what}: {same}/{pix.shape[0]} sums identical; launch "
+          f"(blocks, threads, shared bytes) "
+          f"{mega2.render_radiance_cuda.shape}", flush=True)
+    if not np.isfinite(got).all() or not np.array_equal(got, want):
+        raise AssertionError(f"{what}: K1 differs from the plain version")
 
 
 def row_contention(tape: torch.Tensor) -> dict:
@@ -627,9 +655,9 @@ def phase_train(dev, card: str) -> dict:
           f"plain version", flush=True)
     if same < 1 - MAX_DIFF_LANES:
         raise AssertionError("K2 differs from its plain version")
-    lb_all = lane_bounces(tab, tapes)
+    lb_all = int(path_bounces(tapes, tab.attr, tab.np_rows).sum())
     tape0 = tapes[:, :P].contiguous()                    # sample 0
-    lb0 = lane_bounces(tab, tape0)
+    lb0 = int(path_bounces(tape0, tab.attr, tab.np_rows).sum())
     cont = row_contention(tape0)
     print(f"  d_rep contention, sample 0: row {cont['hot_row']} takes "
           f"{cont['hot_share']:.3f} of the hits; {cont['uniform_warp_share']:.3f}"
@@ -1223,15 +1251,21 @@ def main() -> int:
         print(f"  {kname}: {build['seconds']:.2f} s ({build['path']})",
               flush=True)
         for ln in build["ptxas"].splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "registers" in ln or "spill" in ln or "entry function" in ln:
                 print(f"    ptxas: {ln.strip()}", flush=True)
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                             build["ptxas"])]
+        if kname in NO_SPILLS and (not spills or max(spills) > 0):
+            raise AssertionError(f"{kname}: ptxas reports spills (or no "
+                                 f"report)")
 
     print("[3] RNG and raygen on the card", flush=True)
     phase_rng(dev)
 
     w, h, spp = SMALL
-    print(f"[4] K1 vs plain, all scenes at {w}x{h}@{spp}, max_bounces 50",
-          flush=True)
+    print(f"[4] K1 vs plain, array-equal: all scenes at {w}x{h}@{spp}, "
+          f"max_bounces 50; pixel lists permuted and padded; the large "
+          f"world", flush=True)
     launches0 = mega2.render_radiance_cuda.launches
     for sid in range(10):
         scene, meta, cfg, label = compile_cfg(sid, w, h, spp)
@@ -1240,9 +1274,28 @@ def main() -> int:
         tab = mega2.pack_mega2_tables(scene, meta, dev)
         fp = mega2.frame_params(scene, cfg)
         pix = torch.arange(w * h, dtype=torch.int32, device=dev)
-        k1 = image_of(mega2.render_radiance_cuda(tab, pix, fp), spp)
-        plain = image_of(mega2.render_radiance_plain(tab, pix, fp), spp)
-        compare(k1, plain, f"scene {sid} ({SCENE_NAMES[sid]})")
+        k1_equal(tab, fp, pix, f"scene {sid} ({SCENE_NAMES[sid]})")
+        if sid == 0:
+            rs = np.random.default_rng(11)
+            perm = rs.permutation(w * h)
+            for what, ids in (
+                    ("permuted", perm),
+                    ("permuted, 64 ids -1", np.insert(
+                        perm, rs.integers(0, w * h, 64), -1)),
+                    ("31 ids", perm[:31]), ("389 ids", perm[:389])):
+                k1_equal(tab, fp, torch.as_tensor(ids.astype(np.int32),
+                                                  device=dev),
+                         f"scene 0, {what}")
+    w, h, spp = FIELD
+    scene, meta = compile_scene(sphere_field(), w, h, dtype=np.float32)
+    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                       max_bounces=50)
+    tab = mega2.pack_mega2_tables(scene, meta, dev)
+    k1_equal(tab, mega2.frame_params(scene, cfg),
+             torch.arange(w * h, dtype=torch.int32, device=dev),
+             f"large world, {tab.s_pad} sphere rows at {w}x{h}@{spp}")
+    if mega2.render_radiance_cuda.shape[2] != 0:
+        raise AssertionError("the large world's rows went to shared memory")
     if mega2.render_radiance_cuda.launches <= launches0:
         raise AssertionError("K1 launch counter did not rise")
 
@@ -1276,17 +1329,40 @@ def main() -> int:
     u8 = finalize(fb, spp, gamma=True, out_u8=True).cpu().numpy()
     if not np.array_equal(u8.reshape(h, w, 3)[::-1], img):
         raise AssertionError("main-path frame differs from K1's frame")
-    print(f"  K1 alone: {k1_frame:.4f} s for the frame on {card}",
+    print(f"  K1 alone: {k1_frame:.4f} s for the frame on {card}; launch "
+          f"(blocks, threads, shared bytes) "
+          f"{mega2.render_radiance_cuda.shape}", flush=True)
+    print(f"  u8 frame sha256 {hashlib.sha256(u8.tobytes()).hexdigest()}",
           flush=True)
-    sub = pix[::STRIDE]
-    main_st = compare(
-        image_of(fb[sub.long()], spp),
-        image_of(mega2.render_radiance_plain(tab, sub, fp), spp),
-        f"scene 0 every {STRIDE}th pixel")
+    main_plain_s, plain = once_s(
+        lambda: mega2.render_radiance_plain(tab, pix, fp))
+    print(f"  plain version, the whole frame: {main_plain_s:.2f} s",
+          flush=True)
+    blocks, threads, _ = mega2.render_radiance_cuda.shape
+    main_st = compare(fb.cpu().numpy(), plain.cpu().numpy(),
+                      f"scene 0, the whole frame ({w * h} ids on "
+                      f"{blocks * threads} lanes: pixel refill)", "sums")
+    if w * h <= blocks * threads:
+        raise AssertionError("the main frame did not refill K1's lanes")
+    if not torch.equal(fb, plain):
+        raise AssertionError("K1's sums differ from the plain version on "
+                             "the main frame")
+    del plain
 
+    print(f"[6] K1's bound and lane shares at scene 0 {w}x{h}@{spp}; scene 9 "
+          f"at {SIDE[0]}x{SIDE[1]}@{SIDE[2]}; K1 and plain timed on scene 0 "
+          f"there", flush=True)
+    # K1's bound: the frame's lane-bounces, counted from K2's tapes of the
+    # same (pixel, sample) lanes at the same depth
+    counts = path_counts(tab, fp, pix)
+    main_lb = int(counts.sum())
+    k1_bound = bound(table_bytes(tab) + pix.shape[0] * (4 + 12),
+                     main_lb * pair_ops(tab))
+    print(f"  K1 bound at scene 0 {w}x{h}@{spp}: {main_lb} lane-bounces, "
+          f"{k1_bound[0]:.3f} ms ({k1_bound[1]}); lane shares "
+          f"{json.dumps(lane_shares(counts))}", flush=True)
+    del counts
     w, h, spp = SIDE
-    print(f"[6] scene 9 at {w}x{h}@{spp}; K1 and plain timed on scene 0",
-          flush=True)
     pix = torch.arange(w * h, dtype=torch.int32, device=dev)
     scene, meta, cfg, label = compile_cfg(9, w, h, spp)
     print(f"  scene 9 texture: {label}", flush=True)
@@ -1307,15 +1383,13 @@ def main() -> int:
     k1_s2, _ = timed(lambda: mega2.render_radiance_cuda(tab, pix, fp))
     print(f"  scene 0 K1: {k1_s:.4f} s, then {k1_s2:.4f} s; plain "
           f"{plain_s:.4f} s; on {card}", flush=True)
-    # K1's bound: this frame's lane-bounces, counted from K2's tape of the
-    # same (pixel, sample) lanes at the same depth
-    lane_pix, lane_samp = mega2.tape_lanes(pix, spp)
-    k1_lb = lane_bounces(tab, mega2.trace_tapes_cuda(tab, lane_pix,
-                                                     lane_samp, fp))
-    k1_bound = bound(table_bytes(tab) + pix.shape[0] * (4 + 12),
-                     k1_lb * pair_ops(tab))
+    counts = path_counts(tab, fp, pix)
+    k1_lb = int(counts.sum())
+    side_bound = bound(table_bytes(tab) + pix.shape[0] * (4 + 12),
+                       k1_lb * pair_ops(tab))
     print(f"  K1 bound at scene 0 {w}x{h}@{spp}: {k1_lb} lane-bounces, "
-          f"{k1_bound[0]:.3f} ms ({k1_bound[1]})", flush=True)
+          f"{side_bound[0]:.3f} ms ({side_bound[1]}); lane shares "
+          f"{json.dumps(lane_shares(counts))}", flush=True)
     k1_pair = (min(k1_s, k1_s2) * 1e3, k1_lb, int((tab.sph[:, 9] > 0.5).sum()))
 
     w, h, spp, K = TRACE
@@ -1362,7 +1436,7 @@ def main() -> int:
         raise AssertionError("the port imported jax or the JAX package")
     recs = {"mega2_render": dict(
         launches=launches, max_abs_err=main_st["max_abs"],
-        ms=min(k1_s, k1_s2) * 1e3, plain_ms=plain_s * 1e3, bound=k1_bound),
+        ms=k1_frame * 1e3, plain_ms=main_plain_s * 1e3, bound=k1_bound),
         **recs}
     replaces = {
         "mega2_render": "raytracinginoneweekendincuda_tpu/ops/mega2.py:797",

@@ -5,8 +5,10 @@
 // key space over spheres, loose quads and axis-aligned box slabs; constant
 // media; winner attributes; checker / Perlin-marble / image textures;
 // emission; the five materials' scatter.  The render kernel (K1,
-// mega2_render.cu) runs it per sample; the winner-tape trace kernel (K2,
-// mega2_trace.cu) runs it with textures compiled out.
+// mega2_render.cu) runs it once an iteration of its flat per-lane loop,
+// with the pair rows in shared memory where they fit; the winner-tape
+// trace kernel (K2, mega2_trace.cu) runs it with textures compiled out and
+// the rows in global memory.
 //
 // Arithmetic follows the plain PyTorch version (ops/mega2.py) op for op, in
 // the same association order, and is compiled with --fmad=false: PyTorch's
@@ -55,8 +57,8 @@ constexpr int MED_BOX = 1;
 // Everything one frame's kernel reads.  Mirrored field for field by the
 // ctypes Structure in ops/mega2.py.
 struct Params {
-  const float* sph;       // [s_pad, 16]
-  const float* quad;      // [q_pad + b_pad, 16]
+  const float* sph;       // [s_pad, 16], 16-byte aligned
+  const float* quad;      // [q_pad + b_pad, 16], 16-byte aligned
   const float* attr;      // [np_rows, 40]
   const float* med;       // [max(n_media,1), 22], col 14 = radius^2
   const int* perm;        // [8 * n_noise, 256]
@@ -76,6 +78,32 @@ struct Params {
 struct Ray {
   float ox, oy, oz, dx, dy, dz, tm;
 };
+
+// The rows the pair loops read once a pair: spheres [s_pad, 16], loose
+// quads [nl_pad, 16] and box slabs [b_pad, 16], each row 64 bytes (four
+// float4).  They point into Params' tables (global memory) or into a
+// block's shared-memory copy of them.
+struct PairRows {
+  const float* sph;
+  const float* lquad;
+  const float* box;
+};
+
+__device__ __forceinline__ PairRows global_rows(const Params& p) {
+  return {p.sph, p.quad, p.quad + p.q_pad * QUAD_COLS};
+}
+
+// Columns 4*part .. 4*part+3 of row k: one float4 load from shared
+// memory; from global memory, scalar loads, of which the compiler keeps
+// only the columns used.
+template <bool kSmemRows>
+__device__ __forceinline__ float4 load_row(const float* rows, int k,
+                                           int part) {
+  const float4* r = reinterpret_cast<const float4*>(rows) + 4 * k + part;
+  if (kSmemRows) return *r;
+  const float* c = reinterpret_cast<const float*>(r);
+  return make_float4(c[0], c[1], c[2], c[3]);
+}
 
 // ---- small helpers -------------------------------------------------------
 
@@ -229,13 +257,15 @@ __device__ __forceinline__ float acos_poly(float x) {
 // Advances the path by one bounce: finds the closest hit, adds background
 // (miss) or emission to `acc`, scatters.  Returns whether the path goes on;
 // `win` receives the winner row (-1 miss, np_rows + m for medium m).
+// The pair loops read `rows`, from shared memory when kSmemRows.
 // kTextures = false skips checker / marble / image evaluation: winners,
 // normals and scatter do not depend on texture values (only thr and acc
 // do), so the trace kernel compiles the texture machinery out.
-template <bool kTextures = true>
-__device__ __forceinline__ bool bounce(const Params& p, uint32_t pix_ctr,
-                                       uint32_t samp, uint32_t bnc, Ray& r,
-                                       float thr[3], float acc[3], int& win) {
+template <bool kTextures = true, bool kSmemRows = false>
+__device__ __forceinline__ bool bounce(const Params& p, const PairRows& rows,
+                                       uint32_t pix_ctr, uint32_t samp,
+                                       uint32_t bnc, Ray& r, float thr[3],
+                                       float acc[3], int& win) {
   const float ox = r.ox, oy = r.oy, oz = r.oz;
   const float dx = r.dx, dy = r.dy, dz = r.dz, tm = r.tm;
   const float t_min = p.t_min;
@@ -248,15 +278,17 @@ __device__ __forceinline__ bool bounce(const Params& p, uint32_t pix_ctr,
   float best = BIG;
   win = -1;
   for (int k = 0; k < p.s_pad; ++k) {
-    const float* s = p.sph + k * SPH_COLS;
-    if (!(s[9] > 0.5f)) continue;           // explicit active-row mask
-    float frac = (tm - s[6]) * s[7];
-    float cx = s[0] + frac * s[3];
-    float cy = s[1] + frac * s[4];
-    float cz = s[2] + frac * s[5];
+    const float4 s0 = load_row<kSmemRows>(rows.sph, k, 0);
+    const float4 s1 = load_row<kSmemRows>(rows.sph, k, 1);
+    const float4 s2 = load_row<kSmemRows>(rows.sph, k, 2);
+    if (!(s2.y > 0.5f)) continue;           // explicit active-row mask
+    float frac = (tm - s1.z) * s1.w;
+    float cx = s0.x + frac * s0.w;
+    float cy = s0.y + frac * s1.x;
+    float cz = s0.z + frac * s1.y;
     float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
     float b = ocx * dx + ocy * dy + ocz * dz;
-    float cc = ocx * ocx + ocy * ocy + ocz * ocz - s[10];
+    float cc = ocx * ocx + ocy * ocy + ocz * ocz - s2.z;
     float disc = b * b - a * cc;
     if (!(disc > 0.0f)) continue;
     float sq = sqrtf(disc);
@@ -271,15 +303,18 @@ __device__ __forceinline__ bool bounce(const Params& p, uint32_t pix_ctr,
 
   // loose quads; spheres win ties
   for (int k = 0; k < p.nl_pad; ++k) {
-    const float* q = p.quad + k * QUAD_COLS;
-    if (!(q[12] > 0.5f)) continue;
-    float denom = dx * q[0] + dy * q[1] + dz * q[2];
+    const float4 q3 = load_row<kSmemRows>(rows.lquad, k, 3);
+    if (!(q3.x > 0.5f)) continue;
+    const float4 q0 = load_row<kSmemRows>(rows.lquad, k, 0);
+    float denom = dx * q0.x + dy * q0.y + dz * q0.z;
     if (!(fabsf(denom) >= EPS8)) continue;
-    float t = (q[3] - (ox * q[0] + oy * q[1] + oz * q[2])) / denom;
+    float t = (q0.w - (ox * q0.x + oy * q0.y + oz * q0.z)) / denom;
     if (!(t >= t_min) || !(t < best)) continue;
+    const float4 q1 = load_row<kSmemRows>(rows.lquad, k, 1);
+    const float4 q2 = load_row<kSmemRows>(rows.lquad, k, 2);
     float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
-    float alpha = px * q[4] + py * q[5] + pz * q[6] - q[7];
-    float beta = px * q[8] + py * q[9] + pz * q[10] - q[11];
+    float alpha = px * q1.x + py * q1.y + pz * q1.z - q1.w;
+    float beta = px * q2.x + py * q2.y + pz * q2.z - q2.w;
     if (alpha >= 0.0f && alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f) {
       best = t;
       win = p.s_pad + k;
@@ -290,8 +325,11 @@ __device__ __forceinline__ bool bounce(const Params& p, uint32_t pix_ctr,
   const float o3[3] = {ox, oy, oz};
   const float d3[3] = {dx, dy, dz};
   for (int g = 0; g < p.b_pad; ++g) {
-    const float* q = p.quad + (p.q_pad + g) * QUAD_COLS;
-    if (!(q[7] > 0.5f)) continue;
+    const float4 g0 = load_row<kSmemRows>(rows.box, g, 0);
+    const float4 g1 = load_row<kSmemRows>(rows.box, g, 1);
+    if (!(g1.w > 0.5f)) continue;
+    const float bmin[3] = {g0.x, g0.y, g0.z};
+    const float bmax[3] = {g0.w, g1.x, g1.y};
     float nr[3], fr[3];
     bool side[3];
 #pragma unroll
@@ -299,9 +337,9 @@ __device__ __forceinline__ bool bounce(const Params& p, uint32_t pix_ctr,
       float o_a = o3[ax], d_a = d3[ax];
       bool d_ok = fabsf(d_a) >= EPS8;
       float ds = d_ok ? d_a : 1.0f;
-      float t1 = (q[ax] - o_a) / ds;
-      float t2 = (q[3 + ax] - o_a) / ds;
-      bool inside = (o_a >= q[ax]) && (o_a <= q[3 + ax]);
+      float t1 = (bmin[ax] - o_a) / ds;
+      float t2 = (bmax[ax] - o_a) / ds;
+      bool inside = (o_a >= bmin[ax]) && (o_a <= bmax[ax]);
       nr[ax] = d_ok ? fmin_p(t1, t2) : (inside ? -BIG : BIG);
       fr[ax] = d_ok ? fmax_p(t1, t2) : (inside ? BIG : -BIG);
       side[ax] = d_a > 0.0f;
@@ -322,7 +360,7 @@ __device__ __forceinline__ bool bounce(const Params& p, uint32_t pix_ctr,
       }
     }
     best = tb;
-    win = p.s_pad + (int)q[6] + off;
+    win = p.s_pad + (int)g1.z + off;
   }
 
   // constant media (later media after earlier ones, strict <)

@@ -2,14 +2,45 @@
 //
 // Replaces the persistent Pallas render kernel
 // raytracinginoneweekendincuda_tpu/ops/mega2.py::_make_kernel(mode="render").
-// One thread per pixel id, in the SIMT shape of the CUDA original
-// (kernel.cu:122-154): the thread runs its pixel's spp samples in order,
-// each up to max_bounces bounces of mega2::bounce, and adds a sample's
-// radiance to the pixel sum when its path ends -- the same sum order as the
-// TPU kernel's sample-sequential refill.  Tables are read from global
-// memory (the whole warp reads one primitive row at a time, so loads are
-// broadcasts served from L1/L2); no shared memory.  Divergence and FP32 ALU
-// work in the pair loops bound it.
+//
+// What bounds it: every lane-bounce tests every sphere, loose quad and box
+// slab row (mega2_bounce.cuh), so a lane-bounce costs about the same on
+// every lane, and the frame's time is its lane-bounces times the rows over
+// the rate at which lanes do useful work.  With the design below lanes
+// stay busy until the frame's tail, and what bounds it is the pair loop's
+// instruction issue: on scene 0 at 1440x720@10 it runs sphere pairs at
+// about 80% of the rate of a bare quadratic over the whole card, several
+// times its FP32 bound (the issue slots go to loads, compares and
+// selects).  Before it, lanes idled while their warp finished a longer
+// path (paths end after 1 to max_bounces bounces): a sample loop around a
+// bounce loop kept about 40% of the lane slots busy there.
+//
+// What the design does about it:
+// - One flat loop a lane.  A lane holds one path (pixel, sample, bounce,
+//   ray, thr, acc) and its pixel's running sum; each iteration runs one
+//   mega2::bounce on every lane that has a path.  A lane whose path ends
+//   (miss, light, no scatter, or max_bounces) adds acc to the pixel's sum
+//   -- in sample order, from 0, as the plain version does -- and in the
+//   same iteration starts the pixel's next sample, or writes the sum and
+//   takes the next pixel.  No lane waits at an inner loop's exit for the
+//   longest path of its warp.
+// - A pixel queue.  Lanes take indices into `pix` from one counter, one
+//   warp-aggregated atomicAdd a warp and refill round, so every lane keeps
+//   a path until the queue is empty; only the frame's tail idles.  Which
+//   lane renders which pixel changes from run to run; a pixel's sum does
+//   not (samples are summed in order and the RNG is keyed on pixel, sample
+//   and bounce), so the output is bit-identical from run to run.
+// - A persistent grid: the SMs times the blocks a SM holds at this block
+//   size and shared memory, and never more warps than the ids need.
+// - Pair rows in shared memory.  Each block copies the sphere, loose-quad
+//   and box rows once (float4 copies); the pair loops then read them from
+//   shared memory, which K1 needs: with the rows in global memory (L1
+//   broadcasts) scene 0 at 1440x720@10 takes 1.2x as long (PERF.md).  A
+//   world whose rows exceed a block's opt-in shared memory reads them from
+//   global memory instead, in the other instantiation of the same kernel,
+//   chosen here by the rows' size.  The attr, media, Perlin and texel
+//   tables stay in global memory: only the winner reads them, once a
+//   bounce.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 //        -std=c++17 -shared -Xcompiler -fPIC (see utils/cuda_build.py).
@@ -20,53 +51,201 @@
 
 namespace {
 
-constexpr int kBlock = 128;
+// 384 threads a block (at most), two blocks a SM: registers capped at 85
+// a thread (ptxas takes 80, no spills), 24 warps a SM, and two copies of
+// scene 9's 96 KB of pair rows fit a SM's shared memory.
+constexpr int kBlock = 384;
+constexpr int kMinBlocks = 2;
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kBlock)
+template <bool kSmemRows>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
 mega2_render_kernel(const mega2::Params p, const int* __restrict__ pix,
-                    int n, float* __restrict__ out) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  const int pid = pix[k];
-  float lane[3] = {0.0f, 0.0f, 0.0f};
-  if (pid >= 0) {
-    const uint32_t pix_ctr = (uint32_t)pid ^ p.seed;
-    const float i_f = (float)(pid % p.width);
-    const float j_f = (float)(pid / p.width);
-    for (int s = 0; s < p.spp; ++s) {
-      mega2::Ray r = mega2::raygen(p, pix_ctr, (uint32_t)s, i_f, j_f);
-      float thr[3] = {1.0f, 1.0f, 1.0f};
-      float acc[3] = {0.0f, 0.0f, 0.0f};
-      for (int b = 0;; ++b) {
-        int win;
-        bool alive = mega2::bounce(p, pix_ctr, (uint32_t)s, (uint32_t)b, r,
-                                   thr, acc, win);
-        if (!alive || b + 1 >= p.max_bounces) break;
+                    int n, float* __restrict__ out,
+                    unsigned* __restrict__ queue) {
+  extern __shared__ float4 smem_rows[];
+  mega2::PairRows rows = mega2::global_rows(p);
+  if (kSmemRows) {
+    const float4* sph = reinterpret_cast<const float4*>(p.sph);
+    const float4* lquad = reinterpret_cast<const float4*>(p.quad);
+    const float4* box = reinterpret_cast<const float4*>(rows.box);
+    const int n_s = 4 * p.s_pad, n_l = 4 * p.nl_pad, n_b = 4 * p.b_pad;
+    for (int i = threadIdx.x; i < n_s + n_l + n_b; i += blockDim.x) {
+      smem_rows[i] = i < n_s ? __ldg(sph + i)
+                   : i < n_s + n_l ? __ldg(lquad + (i - n_s))
+                                   : __ldg(box + (i - n_s - n_l));
+    }
+    __syncthreads();
+    const float* base = reinterpret_cast<const float*>(smem_rows);
+    rows = {base, base + mega2::SPH_COLS * p.s_pad,
+            base + mega2::SPH_COLS * (p.s_pad + p.nl_pad)};
+  }
+
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned kx = 0u;              // the lane's index into pix
+  uint32_t pix_ctr = 0u;
+  float i_f = 0.0f, j_f = 0.0f;
+  int s = p.spp;                 // the path's sample; >= spp: needs a pixel
+  int b = 0;                     // the path's bounce
+  bool done = false;             // the queue is empty for this lane
+  bool fresh = false;            // the path starts this iteration
+  mega2::Ray r{};
+  float thr[3] = {1.0f, 1.0f, 1.0f};
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  float sum[3] = {0.0f, 0.0f, 0.0f};
+
+  // Every lane of the warp stays in this loop until the whole warp is
+  // done, so the warp-wide intrinsics below always see all 32 lanes.
+  while (true) {
+    // refill: lanes whose pixel is finished take the next ids, one
+    // atomicAdd a warp and round; an id < 0 gives zeros and another round
+    bool need = !done && s >= p.spp;
+    unsigned want;
+    while ((want = __ballot_sync(kFull, need)) != 0u) {
+      const int leader = __ffs(want) - 1;
+      unsigned base = 0u;
+      if (lane == leader) base = atomicAdd(queue, (unsigned)__popc(want));
+      base = __shfl_sync(kFull, base, leader);
+      if (need) {
+        kx = base + (unsigned)__popc(want & below);
+        if (kx >= (unsigned)n) {
+          done = true;
+          need = false;
+        } else {
+          const int pid = pix[kx];
+          if (pid < 0 || p.spp <= 0) {
+            out[3 * kx + 0] = 0.0f;
+            out[3 * kx + 1] = 0.0f;
+            out[3 * kx + 2] = 0.0f;
+          } else {
+            need = false;
+            pix_ctr = (uint32_t)pid ^ p.seed;
+            i_f = (float)(pid % p.width);
+            j_f = (float)(pid / p.width);
+            s = 0;
+            sum[0] = sum[1] = sum[2] = 0.0f;
+            fresh = true;
+          }
+        }
       }
-      lane[0] = lane[0] + acc[0];
-      lane[1] = lane[1] + acc[1];
-      lane[2] = lane[2] + acc[2];
+    }
+    if (!__any_sync(kFull, !done)) break;
+    if (done) continue;
+
+    if (fresh) {
+      r = mega2::raygen(p, pix_ctr, (uint32_t)s, i_f, j_f);
+      thr[0] = thr[1] = thr[2] = 1.0f;
+      acc[0] = acc[1] = acc[2] = 0.0f;
+      b = 0;
+      fresh = false;
+    }
+    int win;
+    const bool alive = mega2::bounce<true, kSmemRows>(
+        p, rows, pix_ctr, (uint32_t)s, (uint32_t)b, r, thr, acc, win);
+    if (alive && b + 1 < p.max_bounces) {
+      ++b;
+      continue;
+    }
+    sum[0] = sum[0] + acc[0];
+    sum[1] = sum[1] + acc[1];
+    sum[2] = sum[2] + acc[2];
+    if (++s < p.spp) {
+      fresh = true;
+    } else {
+      out[3 * kx + 0] = sum[0];
+      out[3 * kx + 1] = sum[1];
+      out[3 * kx + 2] = sum[2];
     }
   }
-  out[3 * k + 0] = lane[0];
-  out[3 * k + 1] = lane[1];
-  out[3 * k + 2] = lane[2];
+}
+
+// What a device holds, queried once (when K1's shared-memory limit is also
+// raised to the device's opt-in size): its SMs and its opt-in shared memory
+// a block; and K1's resident blocks a SM for the last shared size launched.
+struct DeviceInfo {
+  int sms = 0, smem_optin = 0, smem_bytes = -1, per_sm = 0;
+};
+
+cudaError_t device_info(int dev, DeviceInfo*& info) {
+  static DeviceInfo cache[kMaxDevices];
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  info = &cache[dev];
+  if (info->sms > 0) return cudaSuccess;
+  int sms = 0, optin = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mega2_render_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+  if (err != cudaSuccess) return err;
+  info->smem_optin = optin;
+  info->sms = sms;
+  return cudaSuccess;
+}
+
+template <bool kSmemRows>
+cudaError_t launch(const mega2::Params& p, const int* pix, int n,
+                   float* out, unsigned* queue, DeviceInfo* info,
+                   int smem_bytes, int shape[3], cudaStream_t stream) {
+  if (info->smem_bytes != smem_bytes) {
+    int per_sm = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mega2_render_kernel<kSmemRows>, kBlock, smem_bytes);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    info->per_sm = per_sm;
+    info->smem_bytes = smem_bytes;
+  }
+  const int threads = n < kBlock ? ((n + 31) / 32) * 32 : kBlock;
+  const int need = (n + threads - 1) / threads;
+  const int resident = info->sms * info->per_sm;
+  shape[0] = need < resident ? need : resident;
+  shape[1] = threads;
+  shape[2] = smem_bytes;
+  mega2_render_kernel<kSmemRows><<<shape[0], threads, smem_bytes, stream>>>(
+      p, pix, n, out, queue);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches K1 on `stream` for the n pixel ids in `pix` (device int32; ids
-// < 0 give zeros), writing radiance sums [n, 3] f32 to `out`.  Returns the
-// launch's cudaGetLastError().
+// < 0 give zeros), writing radiance sums [n, 3] f32 to `out`.  `queue` is
+// one device uint32, zero at launch.  The pair rows go to shared memory
+// when they fit a block's opt-in shared memory, else the kernel reads them
+// from global memory.  The grid is persistent: at most the blocks the card
+// holds at once, never more threads than ids (rounded up to a warp).
+// `shape` receives (blocks, threads a block, shared bytes: 0 for rows in
+// global memory).  Returns a CUDA error code: the launch's
+// cudaGetLastError(), or the error of a device query.
 extern "C" int mega2_render_launch(const mega2::Params* params,
                                    const void* pix, int n, void* out,
-                                   void* stream) {
-  if (n > 0) {
-    const int grid = (n + kBlock - 1) / kBlock;
-    mega2_render_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        *params, (const int*)pix, n, (float*)out);
+                                   void* queue, int* shape, void* stream) {
+  shape[0] = shape[1] = shape[2] = 0;
+  if (n < 1) return (int)cudaGetLastError();
+  int dev = 0;
+  DeviceInfo* info = nullptr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = device_info(dev, info);
+  if (err != cudaSuccess) return (int)err;
+  const mega2::Params& p = *params;
+  const long rows = (long)p.s_pad + p.nl_pad + p.b_pad;
+  const long bytes = rows * mega2::SPH_COLS * (long)sizeof(float);
+  if (bytes > 0 && bytes <= info->smem_optin) {
+    err = launch<true>(p, (const int*)pix, n, (float*)out, (unsigned*)queue,
+                       info, (int)bytes, shape, (cudaStream_t)stream);
+  } else {
+    err = launch<false>(p, (const int*)pix, n, (float*)out,
+                        (unsigned*)queue, info, 0, shape,
+                        (cudaStream_t)stream);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 // sizeof(mega2::Params), so the host can check its mirror of the struct.

@@ -15,7 +15,7 @@
 // in path length.  Tables stay in L1/L2 and are read as warp-wide
 // broadcasts; the tape writes are coalesced across lanes (4 bytes per
 // lane-bounce).  The design keeps one lane's path in registers for its
-// whole life, as K1 does; no shared memory.
+// whole life; no shared memory, and no lane refill (K1 has it).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 //        -std=c++17 -shared -Xcompiler -fPIC (see utils/cuda_build.py).
@@ -54,12 +54,13 @@ mega2_trace_kernel(const mega2::Params p, const int* __restrict__ pix,
       r = mega2::raygen(p, pix_ctr, s, (float)(pid % p.width),
                         (float)(pid / p.width));
     }
+    const mega2::PairRows rows = mega2::global_rows(p);
     float thr[3] = {1.0f, 1.0f, 1.0f};
     float acc[3] = {0.0f, 0.0f, 0.0f};
     for (; b < p.max_bounces;) {
       int win;
-      const bool alive = mega2::bounce<false>(p, pix_ctr, s, (uint32_t)b, r,
-                                              thr, acc, win);
+      const bool alive = mega2::bounce<false>(p, rows, pix_ctr, s,
+                                              (uint32_t)b, r, thr, acc, win);
       tape[(size_t)b * n + k] = win;
       ++b;
       if (!alive) break;

@@ -1,14 +1,31 @@
 // K5: the K-bounce ray-pool kernel of the mega engine, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel
-// raytracinginoneweekendincuda_tpu/ops/mega.py::_make_kernel.  One thread
-// per ray of the pool advances it up to K bounces: closest hit over every
-// active sphere and quad (xla_pair.cuh, shared with K6), the winner's
-// attribute row, constant media with their MEDIUM_STREAM draw, miss ->
-// background, the solid / checker texture, emission, the five materials'
-// scatter on SCATTER_STREAM, and the throughput / liveness update.  The ray
-// state stays in registers for the K bounces; a lane that is not active is
-// left as it is (a bounce changes nothing on such a lane).
+// raytracinginoneweekendincuda_tpu/ops/mega.py::_make_kernel.  It advances
+// every ray of the pool up to K bounces: closest hit over every active
+// sphere and quad (xla_pair.cuh, shared with K6), the winner's attribute
+// row, constant media with their MEDIUM_STREAM draw, miss -> background,
+// the solid / checker texture, emission, the five materials' scatter on
+// SCATTER_STREAM, and the throughput / liveness update.  The ray state
+// stays in registers for the K bounces; a ray that is not active is left
+// as it is (a bounce changes nothing on such a ray).
+//
+// What bounded it at one thread a ray: fill.  The engine's pool is 8192
+// rays (MEGA_POOL, a TPU choice): 64 blocks of 128 threads on 132 SMs,
+// each thread walking every sphere and quad alone.  So each ray gets a
+// warp:
+// the 32 lanes take the sphere rows j = lane, lane + 32, ..., then the quad
+// rows, with the per-pair arithmetic of xla_pair.cuh (closest_geo_warp),
+// each lane keeping its own first minimum, and a shuffle butterfly picks
+// the winner exactly as the serial loop does (lowest t, then lowest row,
+// spheres before quads).  The winner's attributes, the media, miss or
+// emission and the scatter are the same on all 32 lanes (they compute on
+// the same values), and lane 0 writes the ray back.  8192 rays are 8192
+// warps, under three waves of the card, and a lane's table reads are
+// coalesced.  What bounds it now is latency: each warp's K bounces are one
+// dependent chain (strided pair tests, a five-step butterfly, the winner's
+// record and scatter), and a launch holds too few warps to hide it.  The
+// kernel is about 1% of a `mega` frame, whose host loop holds the rest.
 //
 // What the TPU design did and what this does instead:
 // - the winner's attributes were a one-hot MXU contraction; here they are an
@@ -18,8 +35,7 @@
 //   table [n_media, 22] (col 15 holds radius^2, squared in f64 on the host
 //   as the Pallas kernel squares its python-float radius), so a scene
 //   needs no rebuild.
-// FP32 ALU work in the pair loop bounds it; tables stay in L2 and are read
-// through the read-only cache.
+// The tables stay in L2 and are read through the read-only cache.
 //
 // Arithmetic follows mega_bounces_plain (ops/mega.py) op for op, in the same
 // association order, compiled with --fmad=false.  The Pallas kernel's
@@ -36,7 +52,8 @@
 
 namespace {
 
-constexpr int kBlock = 128;
+constexpr int kBlock = 256;
+constexpr int kWarps = kBlock / 32;   // rays a block
 constexpr int kSphActive = 11;   // pack_mega_tables' sphere active row
 constexpr int kQuadActive = 12;
 constexpr int kAttrCols = 21;
@@ -155,7 +172,9 @@ __global__ void __launch_bounds__(kBlock)
 mega_bounces_kernel(const MegaParams p, const float* __restrict__ rf,
                     const int* __restrict__ ri, int n,
                     float* __restrict__ rf_out, int* __restrict__ ri_out) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  // one warp a ray: the whole warp leaves together, or not at all
+  const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
   if (k >= n) return;
   const float* s = rf + 13 * k;
   float ox = s[0], oy = s[1], oz = s[2];
@@ -173,8 +192,8 @@ mega_bounces_kernel(const MegaParams p, const float* __restrict__ rf,
     const float a = r.a;
     float t_best;
     int win;
-    xla::closest_geo(r, p.sph, p.s_pad, kSphActive, p.quad, p.q_pad,
-                     kQuadActive, p.t_min, t_best, win);
+    xla::closest_geo_warp(r, p.sph, p.s_pad, kSphActive, p.quad, p.q_pad,
+                          kQuadActive, p.t_min, lane, t_best, win);
 
     // the winner's attribute row (zeros for a miss)
     float aw[kAttrCols];
@@ -369,6 +388,7 @@ mega_bounces_kernel(const MegaParams p, const float* __restrict__ rf,
     active = bounce < p.max_bounces;
   }
 
+  if (lane != 0) return;
   float* o = rf_out + 13 * k;
   o[0] = ox; o[1] = oy; o[2] = oz;
   o[3] = dx; o[4] = dy; o[5] = dz;
@@ -390,7 +410,7 @@ extern "C" int mega_bounces_launch(const MegaParams* params, const void* rf,
                                    const void* ri, int n, void* rf_out,
                                    void* ri_out, void* stream) {
   if (n > 0) {
-    const int grid = (n + kBlock - 1) / kBlock;
+    const int grid = (n + kWarps - 1) / kWarps;
     mega_bounces_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
         *params, (const float*)rf, (const int*)ri, n, (float*)rf_out,
         (int*)ri_out);

@@ -9,7 +9,8 @@
 //
 // Tables are row-major [rows, ld]: row r of primitive j is tab[r * ld + j],
 // so the 32 threads of a warp, walking the primitives in the same order,
-// read one address at a time (a broadcast).  Arithmetic follows the plain
+// read one address at a time (a broadcast), and a warp whose lanes take
+// primitives j, j + 1, ... (closest_geo_warp) reads one coalesced line.  Arithmetic follows the plain
 // PyTorch versions (ops/pallas_hit.py, ops/mega.py) op for op, in the same
 // association order, compiled with --fmad=false.
 
@@ -113,6 +114,45 @@ __device__ __forceinline__ void closest_geo(const GeoRay& r,
     if (t < t_best) {
       t_best = t;
       win = s_pad + q;
+    }
+  }
+}
+
+// closest_geo shared by the 32 lanes of a warp: lane l tests spheres l,
+// l + 32, ... and then quads l, l + 32, ..., keeping its own first minimum
+// (strict <), and a butterfly over the warp takes the smallest (t, win),
+// the lower win on equal t.  win orders spheres before quads and rows
+// upwards, and t < BIG only where win >= 0, so every lane ends with the
+// serial loop's (t_best, win).  All 32 lanes must call it.
+__device__ __forceinline__ void closest_geo_warp(
+    const GeoRay& r, const float* __restrict__ sph, int s_pad,
+    int s_active_row, const float* __restrict__ quad, int q_pad,
+    int q_active_row, float t_min, int lane, float& t_best, int& win) {
+  t_best = BIG;
+  win = -1;
+  for (int j = lane; j < s_pad; j += 32) {
+    if (!(__ldg(sph + s_active_row * s_pad + j) > 0.5f)) continue;
+    const float t = sphere_t(r, sph, s_pad, j, t_min);
+    if (t < t_best) {
+      t_best = t;
+      win = j;
+    }
+  }
+  for (int q = lane; q < q_pad; q += 32) {
+    if (!(__ldg(quad + q_active_row * q_pad + q) > 0.5f)) continue;
+    const float t = quad_t(r, quad, q_pad, q, t_min);
+    if (t < t_best) {
+      t_best = t;
+      win = s_pad + q;
+    }
+  }
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) {
+    const float t_o = __shfl_xor_sync(0xffffffffu, t_best, m);
+    const int w_o = __shfl_xor_sync(0xffffffffu, win, m);
+    if (t_o < t_best || (t_o == t_best && (unsigned)w_o < (unsigned)win)) {
+      t_best = t_o;
+      win = w_o;
     }
   }
 }

@@ -13,7 +13,9 @@ per-draw parity with the device curand stream is neither feasible nor needed
 reason).
 
 The port's own copy of ``raytracinginoneweekendincuda_tpu/models/scenes.py`` (same
-arithmetic; only the package it lives in differs).
+arithmetic; only the package it lives in differs), plus ``sphere_field``, a
+synthetic world of 10,000 spheres on which the card's tests hold the render
+kernels to their plain versions.
 """
 
 from __future__ import annotations
@@ -338,4 +340,31 @@ def book1_basic() -> SceneDesc:
     desc.camera = Camera(
         lookfrom=(0, 0, 0), lookat=(0, 0, -1), vfov=90.0, focus_dist=1.0, background=SKY
     )
+    return desc
+
+
+def sphere_field(n: int = 10_000, seed: int = 1984) -> SceneDesc:
+    """The large world: ``n`` small random spheres (Lambertian 80%, metal
+    15%, glass 5%, some moving) on a 0.5-unit grid over a ground sphere,
+    seen as scene 0 is: a world of far more rows than any reference scene,
+    for holding the render kernels to their plain versions at that size."""
+    rs = np.random.default_rng(seed)
+    desc = SceneDesc()
+    desc.add(Sphere((0.0, -1000.0, 0.0), 1000.0, Lambertian((0.5, 0.5, 0.5))))
+    side = int(np.ceil(np.sqrt(n)))
+    for k in range(n):
+        c = (0.5 * (k % side - side / 2) + 0.3 * rs.random(), 0.15,
+             0.5 * (k // side - side / 2) + 0.3 * rs.random())
+        u = rs.random()
+        if u < 0.8:
+            mat = Lambertian(tuple(rs.random(3) * rs.random(3)))
+        elif u < 0.95:
+            mat = Metal(tuple(0.5 + 0.5 * rs.random(3)), 0.5 * rs.random())
+        else:
+            mat = Dielectric(1.5)
+        c2 = (c[0], c[1] + 0.2 * rs.random(), c[2]) if u < 0.3 else None
+        desc.add(Sphere(c, 0.15, mat, center2=c2))
+    desc.camera = Camera(lookfrom=(13, 2, 3), lookat=(0, 0, 0), vfov=30.0,
+                         aperture=0.1, focus_dist=10.0, time0=0.0,
+                         time1=1.0, background=SKY)
     return desc

@@ -8,13 +8,16 @@ and quads (the pair tests of K6, ``csrc/xla_pair.cuh``), the winner's
 attribute row, constant media with their ``MEDIUM_STREAM`` draw, miss ->
 background, the solid / checker texture, emission, the five materials'
 scatter on ``SCATTER_STREAM``, and the throughput / liveness update.  One
-thread per ray; the ray state stays in registers for the K bounces.  What
-bounds it on an H100: FP32 ALU work in the pair loop (every bounce tests
-every active sphere and quad), not memory -- a ray's state is 68 bytes in
-and out per call, and the tables stay in L2.  On the TPU the winner's
-attributes came from a one-hot MXU contraction; here it is an indexed load
-(a miss reads zeros, the row the one-hot produced), and the media, which
-the Pallas kernel bakes in as constants, are a runtime table.
+warp per ray: its 32 lanes split the sphere and quad rows and a shuffle
+butterfly picks the serial loop's winner; the rest of a bounce runs alike
+on all lanes.  What bounds it on an H100: the latency of each warp's K
+dependent bounces -- the pool is 8192 rays, 64 blocks at one thread a
+ray, 8192 warps (under three waves) at a warp a ray; a ray's state is 68
+bytes in and out per call, and the tables stay in L2.  On the TPU the
+winner's attributes came from a one-hot MXU contraction; here it is an
+indexed load (a miss reads zeros, the row the one-hot produced), and the
+media, which the Pallas kernel bakes in as constants, are a runtime
+table.
 
 `mega_bounces_plain` is the kernel body in PyTorch, in the same op order.
 `mega_bounces` dispatches by device: plain on the CPU, K5 on CUDA, no

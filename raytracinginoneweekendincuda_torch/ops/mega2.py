@@ -2,22 +2,23 @@
 
 K1 (``csrc/mega2_render.cu``) replaces the persistent Pallas render kernel
 ``raytracinginoneweekendincuda_tpu/ops/mega2.py::_make_kernel(mode="render")``.
-It runs one thread per pixel, in the SIMT shape of the CUDA original
-(kernel.cu:122-154): each thread walks its pixel's ``spp`` samples in
-order, each sample up to ``max_bounces`` bounces of ``mega2_bounce``
-(``csrc/mega2_bounce.cuh``), and adds a sample's radiance to the pixel sum
-when the path ends -- the sum order of the TPU kernel's sample-sequential
-refill.
+Each lane of a persistent grid runs one flat loop, one ``mega2_bounce``
+(``csrc/mega2_bounce.cuh``) an iteration: when its path ends it adds the
+path's radiance to its pixel's sum (in sample order, the sum order of the
+TPU kernel's sample-sequential refill), starts the pixel's next sample in
+the same iteration, and after the last one writes the sum and takes the
+next pixel id from a queue (one atomic counter, allocated zeroed for each
+launch).  Each block copies the pair rows (spheres, loose quads, box
+slabs) into shared memory when they fit a block's opt-in shared memory;
+a larger world's rows are read from global memory (the launch decides).
 
-What bounds it on an H100: divergence and FP32 ALU work in the per-ray
-pair loops (every bounce tests every sphere, loose quad and box), not
-memory -- all tables of the largest reference scene are ~3 MB and stay in
-L2/L1, read through ``const __restrict__`` pointers with the whole warp on
-one row at a time (a broadcast).  One thread per pixel keeps a path's
-state in registers for its whole life and needs no inter-pass compaction
-or resume state (the TPU kernel's pass caps, live-lane floors and argsort
-compaction existed to refill idle vector lanes; on SIMT that tail is warp
-divergence, to be measured before anything is done about it).
+What bounds it on an H100: a lane-bounce tests every sphere, loose quad
+and box row, so the time is lane-bounces x rows over the rate of lanes
+that do useful work; the flat loop and the queue keep lanes busy until
+the frame's tail (no lane waits for its warp's longest path), and rows in
+shared memory cost the pair loops less than L1 broadcasts do.  Which lane
+renders which pixel varies from run to run, a pixel's sum does not: the
+RNG is keyed on (pixel, sample, bounce).
 
 ``render_radiance_plain`` is the same function in plain PyTorch: batched
 over rays, looping over samples and bounces with masks, in the same op
@@ -895,7 +896,8 @@ def load_kernel():
     lib, record = load_library("mega2_render")
     lib.mega2_render_launch.argtypes = [
         ctypes.POINTER(_Params), ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_void_p]
     lib.mega2_render_launch.restype = ctypes.c_int
     lib.mega2_params_size.argtypes = []
     lib.mega2_params_size.restype = ctypes.c_int
@@ -908,7 +910,9 @@ def render_radiance_cuda(tab: Mega2Tables, pix: torch.Tensor,
                          fp: FrameParams) -> torch.Tensor:
     """K1 on the card: radiance sums [P, 3] f32 for int32 pixel ids ``pix``
     [P] on a CUDA device.  Launches on the current stream and does not
-    synchronise."""
+    synchronise; ``render_radiance_cuda.shape`` holds the last launch's
+    (blocks, threads a block, shared bytes: 0 when the pair rows stay in
+    global memory)."""
     dev = pix.device
     if dev.type != "cuda":
         raise ValueError(f"render_radiance_cuda needs CUDA tensors, got {dev}")
@@ -918,19 +922,24 @@ def render_radiance_cuda(tab: Mega2Tables, pix: torch.Tensor,
     pix = pix.contiguous()
     lib, _ = load_kernel()
     out = torch.empty((pix.shape[0], 3), dtype=torch.float32, device=dev)
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
     prm = _params(tab, fp)
+    shape = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mega2_render_launch(ctypes.byref(prm), pix.data_ptr(),
-                                      pix.shape[0], out.data_ptr(), stream)
+                                      pix.shape[0], out.data_ptr(),
+                                      queue.data_ptr(), shape, stream)
     if err != 0:
         raise RuntimeError(f"mega2 render kernel launch failed: CUDA error "
                            f"{err}")
     render_radiance_cuda.launches += 1
+    render_radiance_cuda.shape = tuple(shape)
     return out
 
 
 render_radiance_cuda.launches = 0
+render_radiance_cuda.shape = None
 
 
 def render_radiance(tab: Mega2Tables, pix: torch.Tensor,
@@ -1016,6 +1025,9 @@ def _check_tables(tab: Mega2Tables, dev) -> None:
         t = getattr(tab, name)
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"table {name} must be contiguous on {dev}")
+    if tab.sph.data_ptr() % 16 or tab.quad.data_ptr() % 16:
+        raise ValueError("tables sph and quad must be 16-byte aligned (K1 "
+                         "copies their rows as float4)")
 
 
 def load_trace_kernel():

@@ -66,6 +66,75 @@ def test_k1_matches_plain_on_card(sid, dev):
     assert diff.mean() < 2e-3
 
 
+def _assert_k1_equals_plain(tab, fp, pix):
+    before = mega2.render_radiance_cuda.launches
+    got = mega2.render_radiance(tab, pix, fp)
+    want = mega2.render_radiance_plain(tab, pix, fp)
+    torch.cuda.synchronize()
+    assert mega2.render_radiance_cuda.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("sid", [*range(10), *sorted(tex.SCENES)])
+def test_k1_sums_equal_plain_on_card(sid, dev):
+    """K1's radiance sums are array-equal to the plain version's: the same
+    arithmetic in the same order, no FMA contraction, each pixel's samples
+    summed in order whichever lane renders it."""
+    tab, fp = _case(sid, dev)
+    _assert_k1_equals_plain(
+        tab, fp, torch.arange(fp.width * fp.height, dtype=torch.int32,
+                              device=dev))
+    assert mega2.render_radiance_cuda.shape[2] > 0    # rows in shared memory
+
+
+@pytest.mark.parametrize("ids", ["permuted", "padded", "one", "31",
+                                 "ragged"])
+def test_k1_sums_equal_plain_on_pixel_lists(ids, dev):
+    """Pixel lists in any order, padded with -1 (zeros), shorter than a
+    warp (1, 31 ids), or not a multiple of the block (389 ids, one
+    repeated): array-equal to the plain version."""
+    tab, fp = _case(0, dev)
+    rs = np.random.default_rng(11)
+    n_pix = fp.width * fp.height
+    perm = rs.permutation(n_pix)
+    lists = {
+        "permuted": perm,
+        "padded": np.insert(perm, rs.integers(0, n_pix, 64), -1),
+        "one": perm[:1],
+        "31": perm[:31],
+        "ragged": np.append(perm[:388], perm[5]),
+    }
+    pix = torch.as_tensor(lists[ids].astype(np.int32), device=dev)
+    _assert_k1_equals_plain(tab, fp, pix)
+
+
+def test_k1_sums_equal_plain_with_lane_refill(dev):
+    """More pixel ids than the persistent grid has lanes (scene 0 at
+    640x360: 230,400 ids): lanes take a second and third pixel from the
+    queue and reset their sums, which stay array-equal to the plain
+    version's."""
+    tab, fp = _case(0, dev, 640, 360, 2)
+    pix = torch.arange(fp.width * fp.height, dtype=torch.int32, device=dev)
+    _assert_k1_equals_plain(tab, fp, pix)
+    blocks, threads, _ = mega2.render_radiance_cuda.shape
+    assert blocks * threads < pix.shape[0]
+
+
+def test_k1_large_world_equals_plain(dev):
+    """The large world (``sphere_field``: 10,000 spheres, 643 KB of sphere
+    rows) exceeds a block's shared memory: K1 reads its rows from global
+    memory, and its sums stay array-equal to the plain version's."""
+    w, h, spp = 16, 8, 2
+    scene, meta = compile_scene(scenes.sphere_field(), w, h,
+                                dtype=np.float32)
+    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp)
+    tab = mega2.pack_mega2_tables(scene, meta, dev)
+    _assert_k1_equals_plain(
+        tab, mega2.frame_params(scene, cfg),
+        torch.arange(w * h, dtype=torch.int32, device=dev))
+    assert mega2.render_radiance_cuda.shape[2] == 0   # rows in global memory
+
+
 def test_k1_rejects_bad_pixel_ids(dev):
     tab, fp = _case(4, dev)
     with pytest.raises(ValueError, match="int32"):
@@ -270,6 +339,46 @@ def test_k5_matches_plain_on_card(sid, dev):
         rf_p, ri_p = mega.mega_bounces_plain(rf, ri, tabs, **kw)
         torch.cuda.synchronize()
         assert mega.mega_bounces_cuda.launches == before + 1
+        assert (ri_k == ri_p).all(1).float().mean() >= 0.999
+        diff = (rf_k - rf_p).abs().double().cpu().numpy()
+        assert np.isfinite(rf_k.cpu().numpy()).all()
+        assert (diff.max(-1) > 1e-4).mean() <= 0.01
+        assert diff.mean() < 2e-3
+        rf, ri = rf_k, ri_k
+
+
+@pytest.mark.parametrize("k_bounces", (1, 2))
+@pytest.mark.parametrize("n", (1, 33, 8192))
+@pytest.mark.parametrize("sid", (0, 8))
+def test_k5_pools_with_inactive_rays_on_card(sid, n, k_bounces, dev):
+    """K5 (a warp a ray) on pools of 1, 33 and 8192 rays, every third ray
+    inactive: inactive rays come back unchanged, and against the plain
+    version ``ri`` is equal on at least 99.9% of rays and ``rf`` within
+    K1's bounds (chip_smoke.py phase 11's)."""
+    W, H, spp = 64, 32, 4
+    scene, meta = compile_scene(scenes.build_scene(sid), W, H,
+                                dtype=np.float32)
+    tabs = mega.pack_mega_tables(scene, meta, dev)
+    k, (o, d, tm, pc) = _camera_rays(scene, dev, W, H, spp)
+    rf = torch.cat([o, d, tm[:, None], torch.ones_like(o),
+                    torch.zeros_like(o)], dim=1)[:n].contiguous()
+    live = (torch.arange(n, device=dev) % 3 != 2).to(torch.int32)
+    ri = torch.stack([pc, (k // (W * H)).to(torch.int32),
+                      torch.zeros_like(pc), torch.ones_like(pc)],
+                     dim=1)[:n].clone()
+    ri[:, 3] = live
+    kw = dict(k_bounces=k_bounces, t_min=1e-3, max_bounces=50,
+              background=tuple(float(x) for x in
+                               np.asarray(scene.camera.background)))
+    for _ in range(2):
+        before = mega.mega_bounces_cuda.launches
+        rf_k, ri_k = mega.mega_bounces(rf, ri, tabs, **kw)
+        rf_p, ri_p = mega.mega_bounces_plain(rf, ri, tabs, **kw)
+        torch.cuda.synchronize()
+        assert mega.mega_bounces_cuda.launches == before + 1
+        off = ri[:, 3] == 0
+        assert torch.equal(rf_k[off], rf[off]) and torch.equal(ri_k[off],
+                                                               ri[off])
         assert (ri_k == ri_p).all(1).float().mean() >= 0.999
         diff = (rf_k - rf_p).abs().double().cpu().numpy()
         assert np.isfinite(rf_k.cpu().numpy()).all()

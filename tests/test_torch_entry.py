@@ -138,10 +138,11 @@ def test_entry_points_have_no_cpu_default(entry):
 
 
 @pytest.mark.parametrize("tool", ("probe_pair", "probe_intmul",
-                                  "probe_mosaic"))
+                                  "probe_mosaic", "kernel_times"))
 def test_probe_tools_without_card_raise(tool):
     """The probe tools run on the card unless given ``--device cpu``
-    (tests/test_torch_probes.py runs them so)."""
+    (tests/test_torch_probes.py runs them so); ``kernel_times`` runs only
+    on the card."""
     import importlib
 
     _no_card()
