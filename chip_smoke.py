@@ -9,7 +9,8 @@ Builds the port's CUDA kernels from the sources in this checkout -- K1
 P1-P3 (``csrc/probe_pair.cu``, ``probe_intmul.cu``, ``probe_mosaic.cu``),
 one nvcc each, all started together -- and drives the port's four paths:
 the render (the CLI's ``ops/render.render``, engine ``mega2``, at the
-reference's headline config), the training step
+reference's headline config, and on a world large enough for the chunk
+cull), the training step
 (``parallel/train.make_train_step_mega2``), the XLA-family engines
 (``render`` with ``wavefront_pallas`` and ``mega``) and the probe tools
 (``tools/probe_*.main``), holding every kernel against its plain PyTorch
@@ -21,10 +22,11 @@ version.  Phases:
    numpy uint32 reference / the CPU port;
 4. K1 against ``render_radiance_plain`` on the card, radiance sums
    array-equal: all ten scenes at 64x32@4, max_bounces 50, scene 0's
-   pixel ids permuted, padded with -1, 31 and 389 of them, and the large
-   world (``models/scenes.sphere_field``, 10,000 spheres at 32x16@2:
-   rows in global memory, the others' in shared memory), each with K1's
-   launch shape;
+   pixel ids permuted, padded with -1, 31 and 389 of them; the large
+   worlds (``models/scenes.sphere_field``, 3,200 and 10,000 spheres at
+   32x16@2, the chunk cull engaged, rows in shared and in global memory),
+   and scenes 9 and 0 with every chunk culled; each with K1's launch
+   shape;
 5. the main path: scene 0 at 1440x720@10 through ``render``, best of 3,
    with K1's launch count over that run; the PPM is written and checked;
    K1 alone on the frame (best of 3) and the u8 frame's SHA-256; K1's
@@ -38,7 +40,9 @@ version.  Phases:
    lane shares;
 7. K2 against ``trace_tapes_plain``: all ten scenes at 64x32, spp 2, K 8
    (at most 0.1% of lanes may differ), and K2's in-kernel raygen against
-   external rays from ``generate_rays`` on a pinhole scene;
+   external rays from ``generate_rays`` on a pinhole scene; and K2 on the
+   3,200-sphere world at 32x16, spp 2, K 8 with the cull, identical on
+   every lane to K2 without it and to the plain version;
 8. K3 / K4 against ``replay_plain`` and its autograd: all ten scenes at
    64x32, spp 1, K 8 (forward: K1's bounds; backward: d_rep rel-L2 <=
    1e-3, at most 1% of lanes whose d_rays or d_bg differ by more than
@@ -58,7 +62,8 @@ version.  Phases:
 11. K5 against ``mega_bounces_plain`` on scenes 0, 1, 4, 6, 7 and 8, two
     calls on a full 8192-lane pool (``ri`` equal on at least 99.9% of
     lanes, ``rf`` within K1's bounds); K5 timed on scene 0's pool, the
-    main path's shape;
+    main path's shape (K2-K6 alone are timed by CUDA events, in batches
+    of back-to-back launches behind a sleep kernel);
 12. the XLA-family path at full width: scene 0 at 1440x720@10 through
     ``render`` with ``wavefront_pallas`` (K6) and ``mega`` (K5), best of
     3, with the launch counts (one launch per loop iteration), the
@@ -82,8 +87,18 @@ version.  Phases:
     2 ulp) on the tool's inputs and on seeded random ones of the same
     shapes, its kernel, plain version and library call timed (P3 in
     batches of back-to-back launches behind a sleep kernel, with CUDA
-    events: the profiler sees no device records after phase 12's
-    340 k-launch profiled frame).
+    events, as K2-K6);
+14. the main path on the large world: ``sphere_field()`` (10,000 spheres,
+    157 chunks) at 1440x720@10 through ``render``, best of 3, with K1's
+    launch count; K1 with the cull and with it forced off on the whole
+    frame, both timed, array-equal but where the f32 sphere test without
+    the cull reports a hit on a sphere that its ray misses in f64 (each
+    such lane is found and checked: a rounding hit, which the culled
+    kernel skips lane by lane, and the culled winner the ray's f64
+    winner); K1 against the plain version on every
+    97th pixel id, whose cull counts (slab tests, chunks and rows let
+    through, per lane-bounce) and the frame's lane-bounces (K2's tapes)
+    give K1's bound with the cull and without it.
 
 Prints the kernel record and the card on lines of their own, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, before that
@@ -125,7 +140,7 @@ from raytracinginoneweekendincuda_torch.ops.raygen import (
 from raytracinginoneweekendincuda_torch.ops.render import finalize, render
 from raytracinginoneweekendincuda_torch.parallel import train
 from raytracinginoneweekendincuda_torch.tools import (
-    probe_intmul, probe_mosaic, probe_pair,
+    cull_share, probe_intmul, probe_mosaic, probe_pair,
 )
 from raytracinginoneweekendincuda_torch.tools.common import best_ms
 from raytracinginoneweekendincuda_torch.tools.lane_share import (
@@ -142,8 +157,13 @@ NO_SPILLS = ("mega2_render", "mega_bounces")   # sized to hold no spills
 MAIN = (1440, 720, 10)    # the main path's frame: width, height, spp
 SMALL = (64, 32, 4)       # every scene, K1 against the plain version
 SIDE = (360, 180, 10)     # scene 9, and the K1 / plain timing of scene 0
-FIELD = (32, 16, 2)       # the large world's frame: width, height, spp
+FIELD = (32, 16, 2)       # the large worlds' frame: width, height, spp
+FIELD_SMALL = 3200        # sphere_field spheres: 51 chunks, rows in shared
+FIELD_LARGE = 10_000      # and 157 chunks, rows in global memory
+CULL_FORCED = dict(dense_max=0, cull_min_chunks=0)   # cull every chunk
+CULL_OFF = dict(cull_min_chunks=10 ** 9)             # cull no chunk
 TRACE = (64, 32, 2, 8)    # every scene, K2 against the plain version
+TRACE_FIELD = (32, 16, 2, 8)   # K2 culled on sphere_field(FIELD_SMALL)
 REPLAY = (64, 32, 1, 8)   # every scene, K3 / K4 against the plain version
 TRAIN = (640, 360, 8, 8)  # the training step: width, height, spp, K
 MAX_DIFF_LANES = 0.001    # K2: at most 0.1% of lanes may differ
@@ -175,6 +195,10 @@ PEAK_BYTES = 3.35e12
 # RNG) 100; a replayed bounce (csrc/replay_bounce.cuh: re-intersection,
 # record, scatter) 160, its adjoint with the two recomputes 570.
 OPS_SPHERE, OPS_QUAD, OPS_BOX, OPS_MEDIUM, OPS_BOUNCE = 26, 16, 36, 40, 100
+# a chunk's slab test (chunk_visible: six subtractions, six multiplies,
+# twelve min / max, a multiply and two compares) 26; the three sanitized
+# reciprocals of a culled bounce are in OPS_BOUNCE's margin
+OPS_SLAB = 26
 OPS_REPLAY, OPS_REPLAY_BWD = 160, 570
 # FP32 ops per pair test of csrc/xla_pair.cuh (K5, K6): a sphere through
 # the sign of its discriminant (moving centre, oc, half-b, cc, disc) 28 --
@@ -207,6 +231,7 @@ OPS_INTMUL = {"f32mul": 16, "i32mul": 8, "u32mul": 8, "u32addxor": 24,
               "u32mix": 12}
 INT32_LANES = 64          # INT32 lanes of a Hopper SM
 PROBE_BATCH = 20          # back-to-back launches a timed P3 batch
+KERNEL_BATCH = 10         # back-to-back launches a timed K2-K6 batch
 
 
 def synthetic_texture() -> np.ndarray:
@@ -333,15 +358,15 @@ def device_events(fn, repeats: int) -> list:
     return [(name, us, n) for name, (us, n) in sums.items()]
 
 
-def device_ms(fn, kernel: str, repeats: int = 5) -> float:
-    """Mean device milliseconds of the CUDA kernel named ``kernel`` over
-    ``repeats`` calls of ``fn`` (the kernel alone, without the wrapper's
-    host time that CUDA events around a short launch would include)."""
-    evs = [(us, n) for key, us, n in device_events(fn, repeats)
-           if kernel in key]
-    if not evs:
-        raise AssertionError(f"the profiler saw no {kernel} launch")
-    return sum(us for us, _ in evs) / 1e3 / sum(n for _, n in evs)
+def device_ms(fn, dev) -> float:
+    """Device milliseconds of one call of a kernel's wrapper ``fn``: CUDA
+    events around batches of ``KERNEL_BATCH`` back-to-back calls behind a
+    sleep kernel that hides the wrapper's host time, best of 5
+    (``tools/common.best_ms``).  The wrappers allocate their outputs
+    without a launch, but for K4's zeroed ``d_rep`` (one fill).  Not
+    torch.profiler: in a long process it at times returns no device
+    record of a kernel that ran."""
+    return best_ms(fn, dev, 5, KERNEL_BATCH)
 
 
 LOADERS = {"mega2_render": mega2.load_kernel,
@@ -403,9 +428,25 @@ def k1_equal(tab, fp, pix: torch.Tensor, what: str) -> None:
     same = int((got == want).all(1).sum())
     print(f"  {what}: {same}/{pix.shape[0]} sums identical; launch "
           f"(blocks, threads, shared bytes) "
-          f"{mega2.render_radiance_cuda.shape}", flush=True)
+          f"{mega2.render_radiance_cuda.shape}; cull {culled(tab)}",
+          flush=True)
     if not np.isfinite(got).all() or not np.array_equal(got, want):
         raise AssertionError(f"{what}: K1 differs from the plain version")
+
+
+def culled(tab) -> str:
+    """Which chunks the tables cull: "pairs+boxes", "pairs", "boxes" or
+    "none"."""
+    kinds = [k for k, on in (("pairs", tab.cull_pairs),
+                             ("boxes", tab.cull_boxes)) if on]
+    return "+".join(kinds) or "none"
+
+
+def field_tables(n: int, w: int, h: int, dev, **pack):
+    """(scene, meta, tables) of ``sphere_field(n)`` at w x h; ``pack``
+    goes to the packer (its cull thresholds)."""
+    scene, meta = compile_scene(sphere_field(n), w, h, dtype=np.float32)
+    return scene, meta, mega2.pack_mega2_tables(scene, meta, dev, **pack)
 
 
 def row_contention(tape: torch.Tensor) -> dict:
@@ -497,6 +538,28 @@ def phase_trace(dev) -> None:
           f"to the in-kernel raygen", flush=True)
     if same < (1 - MAX_DIFF_LANES) * pix.shape[0]:
         raise AssertionError("K2 with external rays differs")
+    # the chunk cull: the 3,200-sphere world, culled and not, every lane
+    w, h, spp, K = TRACE_FIELD
+    pix, samp = mega2.tape_lanes(
+        torch.arange(w * h, dtype=torch.int32, device=dev), spp)
+    tapes = {}
+    for what, pack in (("culled", {}), ("unculled", CULL_OFF)):
+        scene, meta, tab = field_tables(FIELD_SMALL, w, h, dev, **pack)
+        fp = mega2.frame_params(scene, RenderConfig(
+            width=w, height=h, samples_per_pixel=1, max_bounces=K))
+        tapes[what] = mega2.trace_tapes_cuda(tab, pix, samp, fp)
+        if what == "culled":
+            if not tab.cull_pairs:
+                raise AssertionError("the tables do not cull")
+            tapes["plain"] = mega2.trace_tapes_plain(tab, pix, samp, fp)
+    for what in ("unculled", "plain"):
+        same = int((tapes["culled"] == tapes[what]).all(0).sum())
+        print(f"  sphere_field({FIELD_SMALL}) at {w}x{h}, spp {spp}, K {K}: "
+              f"culled K2 {same}/{pix.shape[0]} lanes identical to the "
+              f"{what} {'K2' if what == 'unculled' else 'version'}",
+              flush=True)
+        if not torch.equal(tapes["culled"], tapes[what]):
+            raise AssertionError(f"culled K2 differs from the {what} tapes")
 
 
 def grad_check(tt, rays, tape, pc, bg, g, t_min, what: str) -> dict:
@@ -634,11 +697,16 @@ def phase_train(dev, card: str) -> dict:
     evs = sorted(device_events(one_step, 1), key=lambda e: -e[1])
     state = box[0]
     busy_ms = sum(us for _, us, _ in evs) / 1e3
-    print(f"  device kernels {busy_ms:.2f} ms of the {step_ms:.2f} ms step "
-          f"(busy {busy_ms / step_ms:.3f}, idle {1 - busy_ms / step_ms:.3f}); "
-          f"{sum(n for *_, n in evs)} launches; busiest: " + ", ".join(
-              f"{key[:40]} {us / 1e3:.2f} ms x{n}" for key, us, n in evs[:6]),
-          flush=True)
+    if not evs:
+        print(f"  device kernels of the {step_ms:.2f} ms step: not measured "
+              f"(the profiler returned no device record)", flush=True)
+    else:
+        print(f"  device kernels {busy_ms:.2f} ms of the {step_ms:.2f} ms "
+              f"step (busy {busy_ms / step_ms:.3f}, idle "
+              f"{1 - busy_ms / step_ms:.3f}); {sum(n for *_, n in evs)} "
+              f"launches; busiest: " + ", ".join(
+                  f"{key[:40]} {us / 1e3:.2f} ms x{n}"
+                  for key, us, n in evs[:6]), flush=True)
 
     # the kernels alone at the step's shapes, against their plain versions
     sc_np = train.merge_params(start, train.params_to_numpy(state.params))
@@ -678,15 +746,15 @@ def phase_train(dev, card: str) -> dict:
     k4_plain_ms = k4_st["plain_ms"]
     dev_ms = {
         "mega2_trace": device_ms(lambda: mega2.trace_tapes_cuda(
-            tab, lane_pix, lane_samp, fp), "mega2_trace_kernel"),
+            tab, lane_pix, lane_samp, fp), dev),
         "replay_fwd": device_ms(lambda: rc.replay_fwd_cuda(
             tt, tt.rep.detach(), rays, tape0, pc, 0, bg, t_min=fp.t_min),
-            "replay_fwd_kernel"),
+            dev),
         "replay_bwd": device_ms(lambda: rc.replay_bwd_cuda(
             tt, tt.rep.detach(), rays, tape0, pc, 0, bg, g, t_min=fp.t_min),
-            "replay_bwd_kernel"),
+            dev),
     }
-    print("  device ms per launch (torch.profiler): " + ", ".join(
+    print("  device ms per launch (CUDA events): " + ", ".join(
         f"{k} {v:.4f}" for k, v in dev_ms.items()) + f"; plain versions "
         f"(CUDA events, one call): K2 {k2_plain_ms:.1f}, K3 "
         f"{k3_plain_ms:.1f}, K4 (autograd backward) {k4_plain_ms:.1f}; "
@@ -846,7 +914,7 @@ def phase_mega_bounces(dev) -> dict:
             continue
         tabs, rf, ri, kw = first
         ms = device_ms(lambda: mega.mega_bounces_cuda(rf, ri, tabs, **kw),
-                       "mega_bounces_kernel")
+                       dev)
         plain_ms, (_, ri_p) = once_ms(
             lambda: mega.mega_bounces_plain(rf, ri, tabs, **kw))
         lb = int((ri_p[:, 2] - ri[:, 2]).sum())
@@ -858,7 +926,7 @@ def phase_mega_bounces(dev) -> dict:
                    bound=bound(nbytes(tabs.sph, tabs.quad, tabs.attr, tabs.med)
                                + 2 * nbytes(rf, ri), ops))
         print(f"  K5 on scene 0's {rf.shape[0]}-lane pool: {ms:.4f} ms a "
-              f"launch (torch.profiler), plain {plain_ms:.2f} ms; "
+              f"launch (CUDA events), plain {plain_ms:.2f} ms; "
               f"{lb} lane-bounces over {n_s} spheres, {n_q} quads; bound "
               f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]})", flush=True)
     return rec
@@ -871,14 +939,18 @@ def frame_split(evs, kernel: str, frame_ms: float) -> dict:
     k_n = sum(n for key, _, n in evs if kernel in key)
     all_us = sum(us for _, us, _ in evs)
     busy_ms = all_us / 1e3
+    if k_n == 0:
+        print(f"    device: not measured (the profiler returned no record "
+              f"of {kernel})", flush=True)
+        return {"kernel_ms": None, "busy": None}
     print(f"    device: {kernel} {k_us / 1e3:.2f} ms over {k_n} launches "
-          f"({k_us / 1e3 / max(k_n, 1):.4f} ms each), other kernels "
+          f"({k_us / 1e3 / k_n:.4f} ms each), other kernels "
           f"{(all_us - k_us) / 1e3:.2f} ms, {sum(n for *_, n in evs)} "
           f"launches in all; busy {busy_ms / frame_ms:.3f} of the "
           f"{frame_ms:.1f} ms frame; busiest: " + ", ".join(
               f"{key[:32]} {us / 1e3:.1f} ms x{n}" for key, us, n in
               sorted(evs, key=lambda e: -e[1])[:5]), flush=True)
-    return {"kernel_ms": k_us / 1e3 / max(k_n, 1), "busy": busy_ms / frame_ms}
+    return {"kernel_ms": k_us / 1e3 / k_n, "busy": busy_ms / frame_ms}
 
 
 def phase_xla_frames(dev, card: str) -> dict:
@@ -901,7 +973,7 @@ def phase_xla_frames(dev, card: str) -> dict:
     err = check_k6(rays, sph, quad, cfg.t_min, "scene 0's first pool")
     ms = device_ms(lambda: pallas_hit.closest_geo_cuda(rays, sph, quad,
                                                        cfg.t_min),
-                   "closest_geo_kernel")
+                   dev)
     plain_ms, _ = once_ms(lambda: pallas_hit.closest_geo_plain(
         rays, sph, quad, cfg.t_min))
     n_s, n_q = active_prims(sph, pallas_hit.SPH_ACTIVE, quad,
@@ -909,7 +981,7 @@ def phase_xla_frames(dev, card: str) -> dict:
     k6 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
               bound=bound(nbytes(sph, quad) + 40 * P,
                           P * (n_s * OPS_XSPHERE + n_q * OPS_XQUAD)))
-    print(f"  K6 on {P} rays: {ms:.4f} ms a launch (torch.profiler), plain "
+    print(f"  K6 on {P} rays: {ms:.4f} ms a launch (CUDA events), plain "
           f"{plain_ms:.2f} ms; {n_s} spheres, {n_q} quads; bound "
           f"{k6['bound'][0]:.4f} ms ({k6['bound'][1]})", flush=True)
 
@@ -1229,6 +1301,167 @@ def phase_probes(dev, k1_pair) -> dict:
     return recs
 
 
+def f64_sphere_winner(tab, o, d, tm: float, t_min: float) -> int:
+    """The table row of the sphere that the ray (o, d) at time tm meets
+    first beyond t_min in f64 (-1: none), over every active sphere row."""
+    r = tab.sph.double().cpu().numpy()
+    r = r[r[:, 9] > 0.5]
+    rows = np.nonzero(tab.sph[:, 9].cpu().numpy() > 0.5)[0]
+    c = r[:, 0:3] + ((tm - r[:, 6]) * r[:, 7])[:, None] * r[:, 3:6]
+    oc = o[None, :] - c
+    qa, qb = d @ d, oc @ d
+    disc = qb * qb - qa * ((oc * oc).sum(1) - r[:, 8] ** 2)
+    sq = np.sqrt(np.maximum(disc, 0.0))
+    t1, t2 = (-qb - sq) / qa, (-qb + sq) / qa
+    t = np.where(t1 > t_min, t1, t2)
+    t = np.where((disc > 0.0) & (t > t_min), t, np.inf)
+    k = int(np.argmin(t))
+    return int(rows[k]) if np.isfinite(t[k]) else -1
+
+
+def rounding_hits(tab, off, fp, ids: torch.Tensor) -> list:
+    """Where the sums of pixel ids ``ids`` differ with the cull and without
+    it: each (pixel, sample) lane whose winners differ (the plain version's
+    tapes), its first differing bounce, the two winners, whether the
+    unculled winner is a rounding hit -- a sphere that the ray, in f64,
+    does not meet at all -- and the ray's f64 winner among all spheres
+    (the world must hold spheres only).  The f32 quadratic of a ray from
+    far away (here: paths inside the 1000-unit ground sphere) cancels
+    |oc|^2 against b^2 and can report such a hit; the culled kernel skips
+    its chunk, whose box the ray does not meet, lane by lane (ROADMAP.md,
+    queue 3)."""
+    if tab.nl_pad or tab.b_pad or tab.n_media:
+        raise AssertionError("rounding_hits compares with f64 spheres only")
+    pix, samp = mega2.tape_lanes(ids, fp.spp)
+    fp1 = fp._replace(spp=1)
+    on = mega2.trace_tapes_plain(tab, pix, samp, fp1)
+    unc = mega2.trace_tapes_plain(off, pix, samp, fp1)
+    out = []
+    for k in (on != unc).any(0).nonzero()[:, 0].tolist():
+        b = int((on[:, k] != unc[:, k]).nonzero()[0, 0])
+        o, d, tm, pc = generate_rays(fp.cam, pix[k:k + 1], samp[k:k + 1],
+                                     fp.width, fp.height, fp.seed)
+        thr, acc = torch.ones_like(o), torch.zeros_like(o)
+        for j in range(b):       # both runs agree on the bounces before b
+            o, d, thr, acc, _, _ = mega2._bounce(
+                off, fp1, o, d, tm, thr, acc, pc, samp[k:k + 1], j, 256)
+        row = int(unc[b, k])
+        o64, d64 = o[0].double().cpu().numpy(), d[0].double().cpu().numpy()
+        rec = {"pixel": int(pix[k]), "sample": int(samp[k]), "bounce": b,
+               "culled_winner": int(on[b, k]), "unculled_winner": row,
+               "f64_winner": f64_sphere_winner(tab, o64, d64, float(tm[0]),
+                                               float(fp.t_min)),
+               "rounding_hit": False}
+        if 0 <= row < tab.s_pad:
+            r = tab.sph[row].double().cpu().numpy()
+            c = r[0:3] + (float(tm[0]) - r[6]) * r[7] * r[3:6]
+            oc = o64 - c
+            qa, qb = d64 @ d64, oc @ d64
+            rec["f64_disc"] = float(qb * qb - qa * (oc @ oc - r[8] * r[8]))
+            rec["rounding_hit"] = rec["f64_disc"] < 0.0
+        out.append(rec)
+    return out
+
+
+def phase_large_world(dev, card: str) -> dict:
+    """The main path on the large world: ``render()`` on
+    ``sphere_field(FIELD_LARGE)`` at the main frame, then K1 with the cull
+    and without it on the whole frame (array-equal, both timed), K1
+    against the plain version on every STRIDE-th id with the plain
+    version's cull counts, and the bounds.  Returns K1's large-world
+    numbers."""
+    w, h, spp = MAIN
+    scene, meta = compile_scene(sphere_field(FIELD_LARGE), w, h,
+                                dtype=np.float32)
+    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                       max_bounces=50, engine="mega2")
+    mega2.render_radiance_cuda.launches = 0
+    sec, img = timed(lambda: render(scene, meta, cfg, device=dev,
+                                    out_u8=True))
+    launches = mega2.render_radiance_cuda.launches
+    if launches < 1:
+        raise AssertionError("render() did not launch K1 on the large world")
+    print(f"  render(): best of 3 {sec:.4f} s, {w * h * spp / sec / 1e6:.2f} "
+          f"M rays/s on {card}; K1 launches {launches}", flush=True)
+    if img.shape != (h, w, 3) or not img.any():
+        raise AssertionError("the large world's image is empty or misshapen")
+    fp = mega2.frame_params(scene, cfg)
+    tab = mega2.pack_mega2_tables(scene, meta, dev)
+    off = mega2.pack_mega2_tables(scene, meta, dev, **CULL_OFF)
+    if not tab.cull_pairs or off.cull_pairs or off.cull_boxes:
+        raise AssertionError("the cull flags are not as asked")
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    on_s, fb = timed(lambda: mega2.render_radiance_cuda(tab, pix, fp))
+    shape = mega2.render_radiance_cuda.shape
+    off_s, fb_off = timed(lambda: mega2.render_radiance_cuda(off, pix, fp))
+    same = int((fb == fb_off).all(1).sum())
+    print(f"  K1 culled {on_s * 1e3:.2f} ms, unculled {off_s * 1e3:.2f} ms "
+          f"(x{off_s / on_s:.2f}), best of 3 on {card}; launch (blocks, "
+          f"threads, shared bytes) {shape}; {same}/{w * h} sums identical",
+          flush=True)
+    differ = (fb != fb_off).any(1).nonzero()[:, 0]
+    if differ.numel():
+        # each kernel computes what its plain version does there, and every
+        # lane that differs is a rounding hit of the unculled sphere test
+        ids = differ.to(torch.int32)
+        for what, t, f in (("culled", tab, fb), ("unculled", off, fb_off)):
+            if not torch.equal(f[differ], mega2.render_radiance_plain(
+                    t, ids, fp)):
+                raise AssertionError(f"K1 {what} differs from the plain "
+                                     f"version on {ids.tolist()}")
+        lanes = rounding_hits(tab, off, fp, ids)
+        for rec in lanes:
+            print(f"    {json.dumps(rec)}", flush=True)
+        if not lanes or not all(
+                rec["rounding_hit"]
+                and rec["culled_winner"] == rec["f64_winner"]
+                for rec in lanes):
+            raise AssertionError("K1 culled differs from K1 unculled where "
+                                 "the unculled hit is not a rounding hit, "
+                                 "or the culled winner is not the f64 one")
+        print(f"  the {differ.numel()} pixels that differ: both kernels "
+              f"equal to their plain versions there; {len(lanes)} lanes, "
+              f"each a rounding hit of the unculled f32 sphere test (a "
+              f"sphere its ray misses in f64) that the cull skips, the "
+              f"culled winner the ray's f64 winner", flush=True)
+    if shape[2] != 0:
+        raise AssertionError("the large world's rows went to shared memory")
+    u8 = finalize(fb, spp, gamma=True, out_u8=True).cpu().numpy()
+    if not np.array_equal(u8.reshape(h, w, 3)[::-1], img):
+        raise AssertionError("render()'s frame differs from K1's")
+    print(f"  u8 frame sha256 {hashlib.sha256(u8.tobytes()).hexdigest()}",
+          flush=True)
+    sub = pix[::STRIDE]
+    plain_s, (plain, cull) = once_s(lambda: cull_share.count(tab, fp, sub))
+    st = compare(fb[sub.long()].cpu().numpy(), plain.cpu().numpy(),
+                 f"K1 vs plain, every {STRIDE}th id ({sub.shape[0]} ids; "
+                 f"plain {plain_s:.1f} s)", "sums")
+    if not torch.equal(fb[sub.long()], plain):
+        raise AssertionError("K1 differs from the plain version")
+    pb = cull["per_bounce"]
+    counts = path_counts(tab, fp, pix)
+    lb = int(counts.sum())
+    del counts
+    ops_on = lb * (pb["tests"] * OPS_SLAB + pb["sphere_rows"] * OPS_SPHERE
+                   + pb["quad_rows"] * OPS_QUAD + pb["box_rows"] * OPS_BOX
+                   + tab.n_media * OPS_MEDIUM + OPS_BOUNCE)
+    b_on = bound(table_bytes(tab) + nbytes(tab.cull_s, tab.cull_q)
+                 + pix.shape[0] * (4 + 12), ops_on)
+    b_off = bound(table_bytes(off) + pix.shape[0] * (4 + 12),
+                  lb * pair_ops(off))
+    print(f"  cull counts of the plain version on those ids, per "
+          f"lane-bounce: {json.dumps(pb)}; the frame's lane-bounces (K2 "
+          f"tapes) {lb}; bound culled {b_on[0]:.3f} ms ({b_on[1]}), "
+          f"unculled {b_off[0]:.3f} ms ({b_off[1]})", flush=True)
+    return {"ms": on_s * 1e3, "unculled_ms": off_s * 1e3,
+            "bound_ms": b_on[0], "unculled_bound_ms": b_off[0],
+            "plain_ms_every_97th": plain_s * 1e3, "render_s": sec,
+            "rays_per_s": w * h * spp / sec, "launches": launches,
+            "lane_bounces": lb, "chunk_share": pb["chunk_share"],
+            "max_abs_err": st["max_abs"],
+            "pixels_differing_unculled": int(differ.numel())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1265,7 +1498,8 @@ def main() -> int:
     w, h, spp = SMALL
     print(f"[4] K1 vs plain, array-equal: all scenes at {w}x{h}@{spp}, "
           f"max_bounces 50; pixel lists permuted and padded; the large "
-          f"world", flush=True)
+          f"worlds, culled; scenes 9 and 0 with every chunk culled",
+          flush=True)
     launches0 = mega2.render_radiance_cuda.launches
     for sid in range(10):
         scene, meta, cfg, label = compile_cfg(sid, w, h, spp)
@@ -1286,16 +1520,30 @@ def main() -> int:
                 k1_equal(tab, fp, torch.as_tensor(ids.astype(np.int32),
                                                   device=dev),
                          f"scene 0, {what}")
+    # the chunk cull: the two large worlds (culled by the JAX package's
+    # rule; rows in shared and in global memory), and scenes 9 and 0 with
+    # every chunk culled
     w, h, spp = FIELD
-    scene, meta = compile_scene(sphere_field(), w, h, dtype=np.float32)
-    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
-                       max_bounces=50)
-    tab = mega2.pack_mega2_tables(scene, meta, dev)
-    k1_equal(tab, mega2.frame_params(scene, cfg),
-             torch.arange(w * h, dtype=torch.int32, device=dev),
-             f"large world, {tab.s_pad} sphere rows at {w}x{h}@{spp}")
-    if mega2.render_radiance_cuda.shape[2] != 0:
-        raise AssertionError("the large world's rows went to shared memory")
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    for n, smem in ((FIELD_SMALL, True), (FIELD_LARGE, False)):
+        scene, meta, tab = field_tables(n, w, h, dev)
+        cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                           max_bounces=50)
+        k1_equal(tab, mega2.frame_params(scene, cfg), pix,
+                 f"large world, {tab.s_pad} sphere rows at {w}x{h}@{spp}")
+        if not tab.cull_pairs:
+            raise AssertionError(f"sphere_field({n}) does not engage the "
+                                 f"cull")
+        if (mega2.render_radiance_cuda.shape[2] > 0) != smem:
+            raise AssertionError(f"sphere_field({n})'s rows went to the "
+                                 f"wrong memory")
+    w, h, spp = SMALL
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    for sid in (9, 0):
+        scene, meta, cfg, _ = compile_cfg(sid, w, h, spp)
+        tab = mega2.pack_mega2_tables(scene, meta, dev, **CULL_FORCED)
+        k1_equal(tab, mega2.frame_params(scene, cfg), pix,
+                 f"scene {sid}, every chunk culled")
     if mega2.render_radiance_cuda.launches <= launches0:
         raise AssertionError("K1 launch counter did not rise")
 
@@ -1393,7 +1641,8 @@ def main() -> int:
     k1_pair = (min(k1_s, k1_s2) * 1e3, k1_lb, int((tab.sph[:, 9] > 0.5).sum()))
 
     w, h, spp, K = TRACE
-    print(f"[7] K2 vs plain, all scenes at {w}x{h}, spp {spp}, K {K}",
+    print(f"[7] K2 vs plain, all scenes at {w}x{h}, spp {spp}, K {K}; the "
+          f"{FIELD_SMALL}-sphere world culled, unculled and plain",
           flush=True)
     phase_trace(dev)
 
@@ -1431,12 +1680,19 @@ def main() -> int:
           "kernel against its plain version", flush=True)
     recs.update(phase_probes(dev, k1_pair))
 
+    w, h, spp = MAIN
+    print(f"[14] main path on the large world: ops/render.render, "
+          f"sphere_field({FIELD_LARGE}) at {w}x{h}@{spp}; K1 culled and "
+          f"unculled", flush=True)
+    large = phase_large_world(dev, card)
+
     if any(m.startswith(("jax", "raytracinginoneweekendincuda_tpu"))
            for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     recs = {"mega2_render": dict(
         launches=launches, max_abs_err=main_st["max_abs"],
-        ms=k1_frame * 1e3, plain_ms=main_plain_s * 1e3, bound=k1_bound),
+        ms=k1_frame * 1e3, plain_ms=main_plain_s * 1e3, bound=k1_bound,
+        large_world=large),
         **recs}
     replaces = {
         "mega2_render": "raytracinginoneweekendincuda_tpu/ops/mega2.py:797",
@@ -1465,7 +1721,7 @@ def main() -> int:
         "bound_by": r["bound"][1],
         "library_ms": r.get("library_ms"),
         **{k: r[k] for k in ("iters", "plain_iters", "cases",
-                             "without_library") if k in r},
+                             "without_library", "large_world") if k in r},
     } for kname, r in recs.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

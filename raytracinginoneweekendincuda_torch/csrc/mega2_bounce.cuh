@@ -2,13 +2,28 @@
 //
 // Port of `bounce_core` in raytracinginoneweekendincuda_tpu/ops/mega2.py
 // (the body of the persistent Pallas kernel `_make_kernel`): closest hit in
-// key space over spheres, loose quads and axis-aligned box slabs; constant
-// media; winner attributes; checker / Perlin-marble / image textures;
-// emission; the five materials' scatter.  The render kernel (K1,
-// mega2_render.cu) runs it once an iteration of its flat per-lane loop,
-// with the pair rows in shared memory where they fit; the winner-tape
-// trace kernel (K2, mega2_trace.cu) runs it with textures compiled out and
-// the rows in global memory.
+// key space over spheres, loose quads and axis-aligned box slabs, with the
+// chunk cull of large worlds (`chunk_visible` there); constant media;
+// winner attributes; checker / Perlin-marble / image textures; emission;
+// the five materials' scatter.  The render kernel (K1, mega2_render.cu)
+// runs it once an iteration of its flat per-lane loop, with the pair rows
+// in shared memory where they fit; the winner-tape trace kernel (K2,
+// mega2_trace.cu) runs it with textures compiled out and the rows in
+// global memory.
+//
+// The chunk cull (kCull): the rows come in 64-row chunks, each with a box
+// (ops/mega2.py's packer).  Before a chunk's rows, each lane runs the slab
+// test of its own ray against the chunk's box within its current (t_min,
+// best) interval and skips the rows if the ray cannot meet the box.  That
+// keeps every winner that f32 arithmetic places inside its chunk's box; a
+// hit the f32 sphere test reports on a sphere its ray misses can lie
+// outside it and is skipped (ROADMAP.md, queue 3).  The test is per lane:
+// K1 calls bounce() only from lanes that have a path and K2's threads
+// return early, so a warp vote over the full mask here would be undefined;
+// and a warp runs a chunk's rows if any of its lanes needs them either
+// way.  The boxes (32 bytes a chunk) are read from global memory whatever
+// the rows: every lane of a warp reads the same box, one L1 broadcast a
+// chunk against the 64 rows it may save.
 //
 // Arithmetic follows the plain PyTorch version (ops/mega2.py) op for op, in
 // the same association order, and is compiled with --fmad=false: PyTorch's
@@ -26,12 +41,15 @@ constexpr int SPH_COLS = 16;
 constexpr int QUAD_COLS = 16;
 constexpr int ATTR_COLS = 40;
 constexpr int MED_COLS = 22;
+constexpr int CULL_C = 64;        // rows of a chunk
+constexpr int CULL_COLS = 8;      // chunk boxes: 0:3 lo, 3:6 hi
 
 constexpr uint32_t CAMERA_STREAM = 0x0CA30000u;
 constexpr uint32_t SCATTER_STREAM = 0x5CA70000u;
 constexpr uint32_t MEDIUM_STREAM = 0x3ED00000u;
 
 constexpr float BIG = 0x1.93e594p+99f;        // 1e30
+constexpr float TINY = 0x1.4484cp-100f;       // 1e-30
 constexpr float HALF_BIG = 0x1.93e594p+98f;   // 5e29
 constexpr float EPS8 = 0x1.5798eep-27f;       // 1e-8
 constexpr float EPS4 = 0x1.a36e2ep-14f;       // 1e-4
@@ -73,6 +91,11 @@ struct Params {
   int n_media, n_noise, n_images, tex_cols;
   int width, height, spp, max_bounces;
   uint32_t seed;
+  const float* cull_s;    // [max(s_pad / 64, 1), 8] sphere chunk boxes
+  const float* cull_q;    // [max((nl_pad + b_pad) / 64, 1), 8] loose-quad
+                          // chunk boxes, then box-slab chunk boxes
+  int cull_pairs;         // culled instantiations: gate sphere and loose-
+  int cull_boxes;         // quad chunks / box-slab chunks
 };
 
 struct Ray {
@@ -252,6 +275,135 @@ __device__ __forceinline__ float acos_poly(float x) {
   return atan2_poly(s, x);
 }
 
+// ---- the chunk cull ------------------------------------------------------
+
+// Sanitized reciprocal of a direction component, as the JAX kernel's cull
+// takes it: never nearer zero than 1e-30, so no inf and no NaN.
+__device__ __forceinline__ float recip_sanitized(float v) {
+  return 1.0f / (v >= 0.0f ? fmax_p(v, TINY) : fmin_p(v, -TINY));
+}
+
+// The JAX kernel's `chunk_visible` for one ray (AABB.h:68-98): may the ray
+// r with reciprocal direction inv meet the chunk's box within (t_min,
+// best)?  `scale` is the ray's a for sphere chunks, whose `best` is in key
+// space, else 1 (exact).
+__device__ __forceinline__ bool chunk_visible(const float* box, const Ray& r,
+                                              const float inv[3],
+                                              float t_min, float best,
+                                              float scale) {
+  const float tax = (__ldg(box + 0) - r.ox) * inv[0];
+  const float tbx = (__ldg(box + 3) - r.ox) * inv[0];
+  const float tay = (__ldg(box + 1) - r.oy) * inv[1];
+  const float tby = (__ldg(box + 4) - r.oy) * inv[1];
+  const float taz = (__ldg(box + 2) - r.oz) * inv[2];
+  const float tbz = (__ldg(box + 5) - r.oz) * inv[2];
+  const float near = fmax_p(fmax_p(fmin_p(tax, tbx), fmin_p(tay, tby)),
+                            fmin_p(taz, tbz));
+  const float far = fmin_p(fmin_p(fmax_p(tax, tbx), fmax_p(tay, tby)),
+                           fmax_p(taz, tbz));
+  return far >= fmax_p(near, t_min) && near * scale < best;
+}
+
+// ---- the closest-hit rows ----------------------------------------------
+
+// Each tests one row against the ray and, where it is nearer than `best`
+// (strict <, so the lowest row keeps a tie), makes it the winner.
+
+// Sphere row k, in key space (key = t * a; a > 0 is per ray, so key order
+// is t order).
+template <bool kSmemRows>
+__device__ __forceinline__ void sphere_row(const float* sph, int k,
+                                           const Ray& r, float a, float akey,
+                                           float& best, int& win) {
+  const float4 s0 = load_row<kSmemRows>(sph, k, 0);
+  const float4 s1 = load_row<kSmemRows>(sph, k, 1);
+  const float4 s2 = load_row<kSmemRows>(sph, k, 2);
+  if (!(s2.y > 0.5f)) return;               // explicit active-row mask
+  float frac = (r.tm - s1.z) * s1.w;
+  float cx = s0.x + frac * s0.w;
+  float cy = s0.y + frac * s1.x;
+  float cz = s0.z + frac * s1.y;
+  float ocx = r.ox - cx, ocy = r.oy - cy, ocz = r.oz - cz;
+  float b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  float cc = ocx * ocx + ocy * ocy + ocz * ocz - s2.z;
+  float disc = b * b - a * cc;
+  if (!(disc > 0.0f)) return;
+  float sq = sqrtf(disc);
+  float k1 = -b - sq;
+  float key = (k1 > akey) ? k1 : (-b + sq);
+  if (key > akey && key < best) {
+    win = k;
+    best = key;
+  }
+}
+
+// Loose-quad row k; spheres win ties.
+template <bool kSmemRows>
+__device__ __forceinline__ void quad_row(const float* lquad, int k,
+                                         const Ray& r, float t_min,
+                                         int s_pad, float& best, int& win) {
+  const float4 q3 = load_row<kSmemRows>(lquad, k, 3);
+  if (!(q3.x > 0.5f)) return;
+  const float4 q0 = load_row<kSmemRows>(lquad, k, 0);
+  float denom = r.dx * q0.x + r.dy * q0.y + r.dz * q0.z;
+  if (!(fabsf(denom) >= EPS8)) return;
+  float t = (q0.w - (r.ox * q0.x + r.oy * q0.y + r.oz * q0.z)) / denom;
+  if (!(t >= t_min) || !(t < best)) return;
+  const float4 q1 = load_row<kSmemRows>(lquad, k, 1);
+  const float4 q2 = load_row<kSmemRows>(lquad, k, 2);
+  float px = r.ox + t * r.dx, py = r.oy + t * r.dy, pz = r.oz + t * r.dz;
+  float alpha = px * q1.x + py * q1.y + pz * q1.z - q1.w;
+  float beta = px * q2.x + py * q2.y + pz * q2.z - q2.w;
+  if (alpha >= 0.0f && alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f) {
+    win = s_pad + k;
+    best = t;
+  }
+}
+
+// Axis-aligned box slab row g; the winner is the hit face's quad row.
+template <bool kSmemRows>
+__device__ __forceinline__ void box_row(const float* box, int g,
+                                        const float o3[3], const float d3[3],
+                                        float t_min, int s_pad, float& best,
+                                        int& win) {
+  const float4 g0 = load_row<kSmemRows>(box, g, 0);
+  const float4 g1 = load_row<kSmemRows>(box, g, 1);
+  if (!(g1.w > 0.5f)) return;
+  const float bmin[3] = {g0.x, g0.y, g0.z};
+  const float bmax[3] = {g0.w, g1.x, g1.y};
+  float nr[3], fr[3];
+  bool side[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    float o_a = o3[ax], d_a = d3[ax];
+    bool d_ok = fabsf(d_a) >= EPS8;
+    float ds = d_ok ? d_a : 1.0f;
+    float t1 = (bmin[ax] - o_a) / ds;
+    float t2 = (bmax[ax] - o_a) / ds;
+    bool inside = (o_a >= bmin[ax]) && (o_a <= bmax[ax]);
+    nr[ax] = d_ok ? fmin_p(t1, t2) : (inside ? -BIG : BIG);
+    fr[ax] = d_ok ? fmax_p(t1, t2) : (inside ? BIG : -BIG);
+    side[ax] = d_a > 0.0f;
+  }
+  float te = fmax_p(fmax_p(nr[0], nr[1]), nr[2]);
+  float tx = fmin_p(fmin_p(fr[0], fr[1]), fr[2]);
+  bool use_enter = te >= t_min;
+  float tb = use_enter ? te : tx;
+  if (!(te <= tx) || !(tb >= t_min) || !(tb < best)) return;
+  // face offsets (min face, max face) per axis; first matching axis wins
+  const int off_min[3] = {3, 5, 2};
+  const int off_max[3] = {1, 4, 0};
+  int off = 0;
+#pragma unroll
+  for (int ax = 2; ax >= 0; --ax) {
+    if (use_enter ? (nr[ax] == te) : (fr[ax] == tx)) {
+      off = (side[ax] == use_enter) ? off_min[ax] : off_max[ax];
+    }
+  }
+  win = s_pad + (int)g1.z + off;
+  best = tb;
+}
+
 // ---- one bounce ------------------------------------------------------------
 
 // Advances the path by one bounce: finds the closest hit, adds background
@@ -260,8 +412,14 @@ __device__ __forceinline__ float acos_poly(float x) {
 // The pair loops read `rows`, from shared memory when kSmemRows.
 // kTextures = false skips checker / marble / image evaluation: winners,
 // normals and scatter do not depend on texture values (only thr and acc
-// do), so the trace kernel compiles the texture machinery out.
-template <bool kTextures = true, bool kSmemRows = false>
+// do), so the trace kernel compiles the texture machinery out.  Without
+// kCull each table's loop tests every row; with it, the loop walks the
+// rows chunk by chunk and skips a chunk (p.cull_pairs: sphere and
+// loose-quad chunks, p.cull_boxes: box-slab chunks) whose box the ray's
+// slab test rejects.  Both loops run the same row functions in the same
+// row order, so the rows a culled bounce tests give the winner an
+// unculled bounce finds among them.
+template <bool kTextures = true, bool kSmemRows = false, bool kCull = false>
 __device__ __forceinline__ bool bounce(const Params& p, const PairRows& rows,
                                        uint32_t pix_ctr, uint32_t samp,
                                        uint32_t bnc, Ray& r, float thr[3],
@@ -272,95 +430,51 @@ __device__ __forceinline__ bool bounce(const Params& p, const PairRows& rows,
   const float a = dx * dx + dy * dy + dz * dz;
   const float inv_a = 1.0f / a;
   const float akey = t_min * a;
-
-  // spheres, in key space (key = t * a; a > 0 is per ray, so key order is
-  // t order); strict < keeps the lowest row on ties
   float best = BIG;
   win = -1;
-  for (int k = 0; k < p.s_pad; ++k) {
-    const float4 s0 = load_row<kSmemRows>(rows.sph, k, 0);
-    const float4 s1 = load_row<kSmemRows>(rows.sph, k, 1);
-    const float4 s2 = load_row<kSmemRows>(rows.sph, k, 2);
-    if (!(s2.y > 0.5f)) continue;           // explicit active-row mask
-    float frac = (tm - s1.z) * s1.w;
-    float cx = s0.x + frac * s0.w;
-    float cy = s0.y + frac * s1.x;
-    float cz = s0.z + frac * s1.y;
-    float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-    float b = ocx * dx + ocy * dy + ocz * dz;
-    float cc = ocx * ocx + ocy * ocy + ocz * ocz - s2.z;
-    float disc = b * b - a * cc;
-    if (!(disc > 0.0f)) continue;
-    float sq = sqrtf(disc);
-    float k1 = -b - sq;
-    float key = (k1 > akey) ? k1 : (-b + sq);
-    if (key > akey && key < best) {
-      best = key;
-      win = k;
-    }
+  float inv[3];                             // the cull's reciprocals
+
+  // spheres; a sphere chunk's slab test compares in key space (near * a)
+  if (kCull) {
+    inv[0] = recip_sanitized(dx);
+    inv[1] = recip_sanitized(dy);
+    inv[2] = recip_sanitized(dz);
+    for (int c = 0; c < p.s_pad / CULL_C; ++c)
+      if (!p.cull_pairs || chunk_visible(p.cull_s + c * CULL_COLS, r, inv,
+                                         t_min, best, a))
+        for (int k = c * CULL_C; k < (c + 1) * CULL_C; ++k)
+          sphere_row<kSmemRows>(rows.sph, k, r, a, akey, best, win);
+  } else {
+    for (int k = 0; k < p.s_pad; ++k)
+      sphere_row<kSmemRows>(rows.sph, k, r, a, akey, best, win);
   }
   best = (best < HALF_BIG) ? best * inv_a : BIG;
 
-  // loose quads; spheres win ties
-  for (int k = 0; k < p.nl_pad; ++k) {
-    const float4 q3 = load_row<kSmemRows>(rows.lquad, k, 3);
-    if (!(q3.x > 0.5f)) continue;
-    const float4 q0 = load_row<kSmemRows>(rows.lquad, k, 0);
-    float denom = dx * q0.x + dy * q0.y + dz * q0.z;
-    if (!(fabsf(denom) >= EPS8)) continue;
-    float t = (q0.w - (ox * q0.x + oy * q0.y + oz * q0.z)) / denom;
-    if (!(t >= t_min) || !(t < best)) continue;
-    const float4 q1 = load_row<kSmemRows>(rows.lquad, k, 1);
-    const float4 q2 = load_row<kSmemRows>(rows.lquad, k, 2);
-    float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
-    float alpha = px * q1.x + py * q1.y + pz * q1.z - q1.w;
-    float beta = px * q2.x + py * q2.y + pz * q2.z - q2.w;
-    if (alpha >= 0.0f && alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f) {
-      best = t;
-      win = p.s_pad + k;
-    }
+  // loose quads
+  if (kCull) {
+    for (int c = 0; c < p.nl_pad / CULL_C; ++c)
+      if (!p.cull_pairs || chunk_visible(p.cull_q + c * CULL_COLS, r, inv,
+                                         t_min, best, 1.0f))
+        for (int k = c * CULL_C; k < (c + 1) * CULL_C; ++k)
+          quad_row<kSmemRows>(rows.lquad, k, r, t_min, p.s_pad, best, win);
+  } else {
+    for (int k = 0; k < p.nl_pad; ++k)
+      quad_row<kSmemRows>(rows.lquad, k, r, t_min, p.s_pad, best, win);
   }
 
-  // axis-aligned box slabs; the winner is the hit face's quad row
+  // box slabs; their chunk boxes follow the loose quads' in cull_q
   const float o3[3] = {ox, oy, oz};
   const float d3[3] = {dx, dy, dz};
-  for (int g = 0; g < p.b_pad; ++g) {
-    const float4 g0 = load_row<kSmemRows>(rows.box, g, 0);
-    const float4 g1 = load_row<kSmemRows>(rows.box, g, 1);
-    if (!(g1.w > 0.5f)) continue;
-    const float bmin[3] = {g0.x, g0.y, g0.z};
-    const float bmax[3] = {g0.w, g1.x, g1.y};
-    float nr[3], fr[3];
-    bool side[3];
-#pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      float o_a = o3[ax], d_a = d3[ax];
-      bool d_ok = fabsf(d_a) >= EPS8;
-      float ds = d_ok ? d_a : 1.0f;
-      float t1 = (bmin[ax] - o_a) / ds;
-      float t2 = (bmax[ax] - o_a) / ds;
-      bool inside = (o_a >= bmin[ax]) && (o_a <= bmax[ax]);
-      nr[ax] = d_ok ? fmin_p(t1, t2) : (inside ? -BIG : BIG);
-      fr[ax] = d_ok ? fmax_p(t1, t2) : (inside ? BIG : -BIG);
-      side[ax] = d_a > 0.0f;
-    }
-    float te = fmax_p(fmax_p(nr[0], nr[1]), nr[2]);
-    float tx = fmin_p(fmin_p(fr[0], fr[1]), fr[2]);
-    bool use_enter = te >= t_min;
-    float tb = use_enter ? te : tx;
-    if (!(te <= tx) || !(tb >= t_min) || !(tb < best)) continue;
-    // face offsets (min face, max face) per axis; first matching axis wins
-    const int off_min[3] = {3, 5, 2};
-    const int off_max[3] = {1, 4, 0};
-    int off = 0;
-#pragma unroll
-    for (int ax = 2; ax >= 0; --ax) {
-      if (use_enter ? (nr[ax] == te) : (fr[ax] == tx)) {
-        off = (side[ax] == use_enter) ? off_min[ax] : off_max[ax];
-      }
-    }
-    best = tb;
-    win = p.s_pad + (int)g1.z + off;
+  if (kCull) {
+    const float* box_cull = p.cull_q + (p.nl_pad / CULL_C) * CULL_COLS;
+    for (int c = 0; c < p.b_pad / CULL_C; ++c)
+      if (!p.cull_boxes || chunk_visible(box_cull + c * CULL_COLS, r, inv,
+                                         t_min, best, 1.0f))
+        for (int g = c * CULL_C; g < (c + 1) * CULL_C; ++g)
+          box_row<kSmemRows>(rows.box, g, o3, d3, t_min, p.s_pad, best, win);
+  } else {
+    for (int g = 0; g < p.b_pad; ++g)
+      box_row<kSmemRows>(rows.box, g, o3, d3, t_min, p.s_pad, best, win);
   }
 
   // constant media (later media after earlier ones, strict <)

@@ -3,8 +3,9 @@
 // Replaces the persistent Pallas render kernel
 // raytracinginoneweekendincuda_tpu/ops/mega2.py::_make_kernel(mode="render").
 //
-// What bounds it: every lane-bounce tests every sphere, loose quad and box
-// slab row (mega2_bounce.cuh), so a lane-bounce costs about the same on
+// What bounds it: in every world too small for the chunk cull (all the
+// reference scenes), every lane-bounce tests every sphere, loose quad and
+// box slab row (mega2_bounce.cuh), so a lane-bounce costs about the same on
 // every lane, and the frame's time is its lane-bounces times the rows over
 // the rate at which lanes do useful work.  With the design below lanes
 // stay busy until the frame's tail, and what bounds it is the pair loop's
@@ -41,6 +42,12 @@
 //   chosen here by the rows' size.  The attr, media, Perlin and texel
 //   tables stay in global memory: only the winner reads them, once a
 //   bounce.
+// - The chunk cull of large worlds (the JAX kernel's, mega2_bounce.cuh):
+//   a world whose tables say so (the packer's cull flags) runs the
+//   instantiation whose closest hit walks 64-row chunks and skips, lane
+//   by lane, the chunks its ray cannot meet.  The others run the loops
+//   over every row, as before: four instantiations, rows in shared or
+//   global memory times culled or not, chosen in the launch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 //        -std=c++17 -shared -Xcompiler -fPIC (see utils/cuda_build.py).
@@ -59,7 +66,7 @@ constexpr int kMinBlocks = 2;
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <bool kSmemRows>
+template <bool kSmemRows, bool kCull>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 mega2_render_kernel(const mega2::Params p, const int* __restrict__ pix,
                     int n, float* __restrict__ out,
@@ -142,7 +149,7 @@ mega2_render_kernel(const mega2::Params p, const int* __restrict__ pix,
       fresh = false;
     }
     int win;
-    const bool alive = mega2::bounce<true, kSmemRows>(
+    const bool alive = mega2::bounce<true, kSmemRows, kCull>(
         p, rows, pix_ctr, (uint32_t)s, (uint32_t)b, r, thr, acc, win);
     if (alive && b + 1 < p.max_bounces) {
       ++b;
@@ -161,11 +168,14 @@ mega2_render_kernel(const mega2::Params p, const int* __restrict__ pix,
   }
 }
 
-// What a device holds, queried once (when K1's shared-memory limit is also
-// raised to the device's opt-in size): its SMs and its opt-in shared memory
-// a block; and K1's resident blocks a SM for the last shared size launched.
+// What a device holds, queried once (when the shared-memory limit of K1's
+// shared-row instantiations is also raised to the device's opt-in size):
+// its SMs and its opt-in shared memory a block; and, for each
+// instantiation, its resident blocks a SM at the last shared size
+// launched.
 struct DeviceInfo {
-  int sms = 0, smem_optin = 0, smem_bytes = -1, per_sm = 0;
+  int sms = 0, smem_optin = 0;
+  int smem_bytes[4] = {-1, -1, -1, -1}, per_sm[4] = {0, 0, 0, 0};
 };
 
 cudaError_t device_info(int dev, DeviceInfo*& info) {
@@ -180,7 +190,11 @@ cudaError_t device_info(int dev, DeviceInfo*& info) {
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(mega2_render_kernel<true>,
+    err = cudaFuncSetAttribute(mega2_render_kernel<true, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mega2_render_kernel<true, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
   if (err != cudaSuccess) return err;
@@ -189,28 +203,41 @@ cudaError_t device_info(int dev, DeviceInfo*& info) {
   return cudaSuccess;
 }
 
-template <bool kSmemRows>
+template <bool kSmemRows, bool kCull>
 cudaError_t launch(const mega2::Params& p, const int* pix, int n,
                    float* out, unsigned* queue, DeviceInfo* info,
                    int smem_bytes, int shape[3], cudaStream_t stream) {
-  if (info->smem_bytes != smem_bytes) {
+  const int v = 2 * kSmemRows + kCull;
+  if (info->smem_bytes[v] != smem_bytes) {
     int per_sm = 0;
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, mega2_render_kernel<kSmemRows>, kBlock, smem_bytes);
+        &per_sm, mega2_render_kernel<kSmemRows, kCull>, kBlock, smem_bytes);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-    info->per_sm = per_sm;
-    info->smem_bytes = smem_bytes;
+    info->per_sm[v] = per_sm;
+    info->smem_bytes[v] = smem_bytes;
   }
   const int threads = n < kBlock ? ((n + 31) / 32) * 32 : kBlock;
   const int need = (n + threads - 1) / threads;
-  const int resident = info->sms * info->per_sm;
+  const int resident = info->sms * info->per_sm[v];
   shape[0] = need < resident ? need : resident;
   shape[1] = threads;
   shape[2] = smem_bytes;
-  mega2_render_kernel<kSmemRows><<<shape[0], threads, smem_bytes, stream>>>(
-      p, pix, n, out, queue);
+  mega2_render_kernel<kSmemRows, kCull>
+      <<<shape[0], threads, smem_bytes, stream>>>(p, pix, n, out, queue);
   return cudaGetLastError();
+}
+
+template <bool kCull>
+cudaError_t launch_rows(const mega2::Params& p, const int* pix, int n,
+                        float* out, unsigned* queue, DeviceInfo* info,
+                        int shape[3], cudaStream_t stream) {
+  const long rows = (long)p.s_pad + p.nl_pad + p.b_pad;
+  const long bytes = rows * mega2::SPH_COLS * (long)sizeof(float);
+  if (bytes > 0 && bytes <= info->smem_optin)
+    return launch<true, kCull>(p, pix, n, out, queue, info, (int)bytes,
+                               shape, stream);
+  return launch<false, kCull>(p, pix, n, out, queue, info, 0, shape, stream);
 }
 
 }  // namespace
@@ -219,7 +246,8 @@ cudaError_t launch(const mega2::Params& p, const int* pix, int n,
 // < 0 give zeros), writing radiance sums [n, 3] f32 to `out`.  `queue` is
 // one device uint32, zero at launch.  The pair rows go to shared memory
 // when they fit a block's opt-in shared memory, else the kernel reads them
-// from global memory.  The grid is persistent: at most the blocks the card
+// from global memory; the culled instantiation runs when the tables cull
+// pair or box chunks.  The grid is persistent: at most the blocks the card
 // holds at once, never more threads than ids (rounded up to a warp).
 // `shape` receives (blocks, threads a block, shared bytes: 0 for rows in
 // global memory).  Returns a CUDA error code: the launch's
@@ -235,16 +263,14 @@ extern "C" int mega2_render_launch(const mega2::Params* params,
   if (err == cudaSuccess) err = device_info(dev, info);
   if (err != cudaSuccess) return (int)err;
   const mega2::Params& p = *params;
-  const long rows = (long)p.s_pad + p.nl_pad + p.b_pad;
-  const long bytes = rows * mega2::SPH_COLS * (long)sizeof(float);
-  if (bytes > 0 && bytes <= info->smem_optin) {
-    err = launch<true>(p, (const int*)pix, n, (float*)out, (unsigned*)queue,
-                       info, (int)bytes, shape, (cudaStream_t)stream);
-  } else {
-    err = launch<false>(p, (const int*)pix, n, (float*)out,
-                        (unsigned*)queue, info, 0, shape,
-                        (cudaStream_t)stream);
-  }
+  if (p.cull_pairs || p.cull_boxes)
+    err = launch_rows<true>(p, (const int*)pix, n, (float*)out,
+                            (unsigned*)queue, info, shape,
+                            (cudaStream_t)stream);
+  else
+    err = launch_rows<false>(p, (const int*)pix, n, (float*)out,
+                             (unsigned*)queue, info, shape,
+                             (cudaStream_t)stream);
   return (int)err;
 }
 

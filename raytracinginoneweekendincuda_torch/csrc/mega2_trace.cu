@@ -15,7 +15,10 @@
 // in path length.  Tables stay in L1/L2 and are read as warp-wide
 // broadcasts; the tape writes are coalesced across lanes (4 bytes per
 // lane-bounce).  The design keeps one lane's path in registers for its
-// whole life; no shared memory, and no lane refill (K1 has it).
+// whole life; no shared memory, and no lane refill (K1 has it).  A world
+// whose tables cull chunks runs the culled instantiation of the bounce
+// (mega2_bounce.cuh), each thread testing its own ray against a chunk's
+// box: threads past n return at once, so no warp-wide vote is valid here.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 //        -std=c++17 -shared -Xcompiler -fPIC (see utils/cuda_build.py).
@@ -28,6 +31,7 @@ namespace {
 
 constexpr int kBlock = 128;
 
+template <bool kCull>
 __global__ void __launch_bounds__(kBlock)
 mega2_trace_kernel(const mega2::Params p, const int* __restrict__ pix,
                    const int* __restrict__ samp,
@@ -59,8 +63,8 @@ mega2_trace_kernel(const mega2::Params p, const int* __restrict__ pix,
     float acc[3] = {0.0f, 0.0f, 0.0f};
     for (; b < p.max_bounces;) {
       int win;
-      const bool alive = mega2::bounce<false>(p, rows, pix_ctr, s,
-                                              (uint32_t)b, r, thr, acc, win);
+      const bool alive = mega2::bounce<false, false, kCull>(
+          p, rows, pix_ctr, s, (uint32_t)b, r, thr, acc, win);
       tape[(size_t)b * n + k] = win;
       ++b;
       if (!alive) break;
@@ -73,15 +77,19 @@ mega2_trace_kernel(const mega2::Params p, const int* __restrict__ pix,
 
 // Launches K2 on `stream` for n lanes: `pix` / `samp` device int32 [n]
 // (pix < 0: padding), `rays` device f32 [n, 7] or null, `tape` device
-// int32 [max_bounces, n].  Returns the launch's cudaGetLastError().
+// int32 [max_bounces, n]; the culled instantiation when the tables cull
+// pair or box chunks.  Returns the launch's cudaGetLastError().
 extern "C" int mega2_trace_launch(const mega2::Params* params,
                                   const void* pix, const void* samp,
                                   const void* rays, int n, void* tape,
                                   void* stream) {
   if (n > 0) {
     const int grid = (n + kBlock - 1) / kBlock;
-    mega2_trace_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        *params, (const int*)pix, (const int*)samp, (const float*)rays, n,
+    const mega2::Params& p = *params;
+    auto* kernel = (p.cull_pairs || p.cull_boxes) ? mega2_trace_kernel<true>
+                                                  : mega2_trace_kernel<false>;
+    kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+        p, (const int*)pix, (const int*)samp, (const float*)rays, n,
         (int*)tape);
   }
   return (int)cudaGetLastError();

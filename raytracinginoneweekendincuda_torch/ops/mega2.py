@@ -13,12 +13,14 @@ slabs) into shared memory when they fit a block's opt-in shared memory;
 a larger world's rows are read from global memory (the launch decides).
 
 What bounds it on an H100: a lane-bounce tests every sphere, loose quad
-and box row, so the time is lane-bounces x rows over the rate of lanes
-that do useful work; the flat loop and the queue keep lanes busy until
-the frame's tail (no lane waits for its warp's longest path), and rows in
-shared memory cost the pair loops less than L1 broadcasts do.  Which lane
-renders which pixel varies from run to run, a pixel's sum does not: the
-RNG is keyed on (pixel, sample, bounce).
+and box row (in a world large enough for the JAX package's chunk cull,
+every row of the 64-row chunks whose box its ray may meet), so the time
+is lane-bounces x rows over the rate of lanes that do useful work; the
+flat loop and the queue keep lanes busy until the frame's tail (no lane
+waits for its warp's longest path), and rows in shared memory cost the
+pair loops less than L1 broadcasts do.  Which lane renders which pixel
+varies from run to run, a pixel's sum does not: the RNG is keyed on
+(pixel, sample, bounce).
 
 ``render_radiance_plain`` is the same function in plain PyTorch: batched
 over rays, looping over samples and bounces with masks, in the same op
@@ -44,7 +46,15 @@ from ..scene.compiler import (
 from ..utils.config import RenderConfig
 from .raygen import camera_tuple, generate_rays, pixel_counter
 
-CULL_C = 64        # row padding multiple of the sphere / quad / box tables
+CULL_C = 64        # rows of a chunk, the row padding multiple of the
+                   # sphere / quad / box tables
+CULL_COLS = 8      # chunk boxes: 0:3 lo, 3:6 hi (f32 of the f64 bounds)
+# The JAX package's cull rule: a world whose pair-tested rows (spheres and
+# loose quads) exceed DENSE_MAX culls their chunks, and box chunks are
+# culled in any world, in both cases only beyond CULL_MIN_CHUNKS chunks in
+# all (ops/mega2.py there: DENSE_MAX, CULL_MIN_CHUNKS, _pair_mode).
+DENSE_MAX = 1536
+CULL_MIN_CHUNKS = 48
 SPH_COLS = 16      # 0:3 c0, 3:6 dc, 6 t0, 7 inv_dt, 8 rad, 9 active,
                    # 10 rad^2 (squared in f32 on the host)
 QUAD_COLS = 16     # 0:3 n_unit, 3 D, 4:7 vxw, 7 q.vxw, 8:11 wxu, 11 q.wxu,
@@ -61,6 +71,7 @@ MED_COLS = 22      # 0 kind, 1:4 center, 4 radius, 5:8 bmin, 8:11 bmax,
                    # radius), 16:19 offset, 19:22 albedo
 
 BIG = float(np.float32(1.0e30))
+TINY = float(np.float32(1.0e-30))
 HALF_BIG = float(np.float32(1.0e30 * 0.5))
 EPS8 = float(np.float32(1.0e-8))
 EPS4 = float(np.float32(1.0e-4))
@@ -90,12 +101,17 @@ class Mega2Tables(NamedTuple):
     texels: torch.Tensor    # [sum ih_pad, iw_pad] i32, (r<<16)|(g<<8)|b
     img_dims: torch.Tensor  # [n_images, 3] i32: iw, ih, texel row offset
     remap: torch.Tensor     # [np_geo + M] i32 kernel row -> global scene id
+    cull_s: torch.Tensor    # [max(s_pad / 64, 1), 8] f32 sphere chunk boxes
+    cull_q: torch.Tensor    # [max((nl_pad + b_pad) / 64, 1), 8] f32 loose-
+                            # quad chunk boxes, then box-slab chunk boxes
     s_pad: int              # sphere rows
     nl_pad: int             # loose-quad rows (pair-tested)
     q_pad: int              # quad rows in attr; box slab rows start here
     b_pad: int              # box slab rows
     n_media: int
     n_noise: int
+    cull_pairs: bool        # sphere and loose-quad chunks are culled
+    cull_boxes: bool        # box-slab chunks are culled
 
     @property
     def np_rows(self) -> int:
@@ -264,14 +280,20 @@ def _pack_textures(scene: SceneArrays, meta: SceneMeta):
     return perm, vec, texels, img_dims
 
 
-def pack_mega2_tables(scene: SceneArrays, meta: SceneMeta,
-                      device) -> Mega2Tables:
+def pack_mega2_tables(scene: SceneArrays, meta: SceneMeta, device, *,
+                      dense_max: int = DENSE_MAX,
+                      cull_min_chunks: int = CULL_MIN_CHUNKS) -> Mega2Tables:
     """Compiled scene (numpy) -> the port's tables on ``device``.
 
     Row order and f32 rounding follow the JAX package's packer exactly
     (ties go to the lowest row, so the order decides winners): spheres
     big-first then Morton, then loose quads (Morton), boxed faces, padding,
-    and box slab rows.  Attributes are row-major [np_rows, 40]."""
+    and box slab rows.  Attributes are row-major [np_rows, 40].  Each
+    64-row chunk gets a box (spheres swept over their motion, loose quads
+    over their corners, box slabs over their boxes; an empty chunk a point
+    at 1e30), and the JAX package's rule decides which chunks the closest
+    hit culls; ``dense_max`` and ``cull_min_chunks`` move its thresholds
+    (``dense_max=0, cull_min_chunks=0`` culls every chunk of any world)."""
     S = scene.sph_c0.shape[0]
     Q = scene.quad_q.shape[0]
 
@@ -293,6 +315,17 @@ def pack_mega2_tables(scene: SceneArrays, meta: SceneMeta,
     sph[:ns, 9] = 1.0
     radf = rad_all[sorder].astype(np.float32)
     sph[:ns, 10] = (radf * radf).astype(np.float64)
+
+    # sphere chunk boxes, swept over the motion (MovingSphere.h:30-36)
+    n_s_chunks = S_pad // CULL_C
+    cull_s = np.zeros((max(n_s_chunks, 1), CULL_COLS))
+    cull_s[:, 0:6] = 1.0e30
+    for c in range(n_s_chunks):
+        a = sph[c * CULL_C:min((c + 1) * CULL_C, ns)]
+        if len(a):
+            ends = np.stack([a[:, 0:3], a[:, 0:3] + a[:, 3:6]])
+            cull_s[c, 0:3] = (ends.min(0) - a[:, 8:9]).min(0)
+            cull_s[c, 3:6] = (ends.max(0) + a[:, 8:9]).max(0)
 
     # ---- quads: loose quads (Morton) | boxed faces | padding | box rows
     u_all = np.asarray(scene.quad_u, np.float64)
@@ -344,6 +377,31 @@ def pack_mega2_tables(scene: SceneArrays, meta: SceneMeta,
         quad[Q_pad + g, 3:6] = bmx
         quad[Q_pad + g, 6] = float(nl_pad + 6 * g)
         quad[Q_pad + g, 7] = 1.0
+
+    # chunk boxes: loose-quad chunks (four corners), then box-slab chunks
+    n_q_chunks = nl_pad // CULL_C
+    n_b_chunks = B_pad // CULL_C
+    cull_q = np.zeros((max(n_q_chunks + n_b_chunks, 1), CULL_COLS))
+    cull_q[:, 0:6] = 1.0e30
+    for c in range(n_q_chunks):
+        r = np.arange(c * CULL_C, min((c + 1) * CULL_C, nl))
+        if len(r):
+            corners = np.stack([qq[r], qq[r] + u[r], qq[r] + v[r],
+                                qq[r] + u[r] + v[r]])
+            cull_q[c, 0:3] = corners.min((0, 1))
+            cull_q[c, 3:6] = corners.max((0, 1))
+    for c in range(n_b_chunks):
+        gs = boxes[c * CULL_C:(c + 1) * CULL_C]
+        if gs:
+            cull_q[n_q_chunks + c, 0:3] = np.stack([g[1] for g in gs]).min(0)
+            cull_q[n_q_chunks + c, 3:6] = np.stack([g[2] for g in gs]).max(0)
+
+    # the cull rule (the JAX package's _pair_mode and CULL_MIN_CHUNKS): a
+    # world without quads counts no quad or box chunks
+    nl_c, b_c = (n_q_chunks, n_b_chunks) if meta.n_quads > 0 else (0, 0)
+    many = n_s_chunks + nl_c + b_c > cull_min_chunks
+    cull_pairs = many and S_pad + nl_c * CULL_C > dense_max
+    cull_boxes = many and b_c > 0
 
     # ---- winner attributes, row-major
     use_quads = meta.n_quads > 0
@@ -398,8 +456,10 @@ def pack_mega2_tables(scene: SceneArrays, meta: SceneMeta,
         med=f32(med),
         perm=i32(perm), vec=f32(vec), texels=i32(texels),
         img_dims=i32(img_dims), remap=i32(remap),
+        cull_s=f32(cull_s), cull_q=f32(cull_q),
         s_pad=S_pad, nl_pad=nl_pad, q_pad=Q_pad, b_pad=B_pad,
-        n_media=meta.n_media, n_noise=max(meta.n_noise, 1))
+        n_media=meta.n_media, n_noise=max(meta.n_noise, 1),
+        cull_pairs=bool(cull_pairs), cull_boxes=bool(cull_boxes))
 
 
 # --------------------------------------------------------------------------
@@ -414,7 +474,64 @@ def _argmin_first(x: torch.Tensor):
     return mn, idx
 
 
-def _closest_spheres(tab, o, d, tm, a, akey, chunk):
+def _recip(d: torch.Tensor) -> torch.Tensor:
+    """Reciprocal directions [N, 3] of the chunk slab test, sanitized as the
+    JAX kernel does: no component nearer zero than 1e-30, so no inf and no
+    NaN (a near-zero component gives huge finite ts, which the interval
+    test takes conservatively)."""
+    return 1.0 / torch.where(d >= 0.0, torch.clamp_min(d, TINY),
+                             torch.clamp_max(d, -TINY))
+
+
+def _visible(box, o, inv, t_min: float, best, a=None):
+    """The JAX kernel's ``chunk_visible`` per ray (AABB.h:68-98): may the
+    ray meet chunk ``box`` [8] within (t_min, best)?  Skipping a chunk the
+    ray does not meet changes no winner but a rounding hit on a sphere the
+    ray misses (ROADMAP.md, queue 3).  ``a`` [N]: ``best`` is in sphere key
+    space (t*a), so the box's near t is scaled by it."""
+    ta = (box[0:3][None, :] - o) * inv
+    tb = (box[3:6][None, :] - o) * inv
+    lo = torch.minimum(ta, tb)
+    hi = torch.maximum(ta, tb)
+    near = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
+    far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
+    near_k = near if a is None else near * a
+    return (far >= torch.clamp_min(near, t_min)) & (near_k < best)
+
+
+def _chunks(rows: int, chunk: int, box0: int, cull, o, inv, t_min, best,
+            stats, kind: str, a=None):
+    """The row chunks a closest-hit loop runs: (first row, rows, the rays
+    that take the chunk's result or None for all).  Culled (``cull``):
+    64-row chunks, box ``box0 + c`` gating chunk c per ray, and chunks that
+    no ray may meet are skipped; ``stats`` counts the slab tests, the
+    chunks they let through and those chunks' rows."""
+    step = CULL_C if cull is not None else chunk
+    for c0 in range(0, rows, step):
+        n = min(step, rows - c0)
+        if cull is None:
+            yield c0, n, None
+            continue
+        vis = _visible(cull[box0 + c0 // CULL_C], o, inv, t_min, best(), a)
+        if stats is not None:
+            k = int(vis.sum())
+            stats["tests"] += vis.numel()
+            stats["chunks"] += k
+            stats[kind] += k * n
+        if bool(vis.any()):
+            yield c0, n, vis
+
+
+def _take(mn, idx, vis, best, win, base):
+    """Merge a chunk's (min, index) into the running (best, win): strict <,
+    so an earlier row keeps a tie; only rays in ``vis`` (None: all)."""
+    better = mn < best
+    if vis is not None:
+        better = better & vis
+    return torch.where(better, mn, best), torch.where(better, base + idx, win)
+
+
+def _closest_spheres(tab, o, d, tm, a, akey, t_min, chunk, inv, stats):
     """Closest sphere in key space (key = t*a): per ray (key, row or -1)."""
     n = o.shape[0]
     best = torch.full((n,), BIG, dtype=torch.float32, device=o.device)
@@ -422,8 +539,10 @@ def _closest_spheres(tab, o, d, tm, a, akey, chunk):
     ox, oy, oz = (o[:, k:k + 1] for k in range(3))
     dx, dy, dz = (d[:, k:k + 1] for k in range(3))
     tmc, ac, akc = tm[:, None], a[:, None], akey[:, None]
-    for c0 in range(0, tab.s_pad, chunk):
-        r = tab.sph[c0:c0 + chunk]
+    cull = tab.cull_s if tab.cull_pairs else None
+    for c0, m, vis in _chunks(tab.s_pad, chunk, 0, cull, o, inv, t_min,
+                              lambda: best, stats, "sphere_rows", a):
+        r = tab.sph[c0:c0 + m]
         col = lambda k: r[:, k][None, :]
         frac = (tmc - col(6)) * col(7)
         cx = col(0) + frac * col(3)
@@ -442,18 +561,18 @@ def _closest_spheres(tab, o, d, tm, a, akey, chunk):
         # explicit active-row mask: padding rows are not left to disc > 0
         ok = (disc > 0.0) & (key > akc) & (col(9) > 0.5)
         mn, idx = _argmin_first(torch.where(ok, key, BIG))
-        better = mn < best
-        best = torch.where(better, mn, best)
-        win = torch.where(better, c0 + idx, win)
+        best, win = _take(mn, idx, vis, best, win, c0)
     return best, win
 
 
-def _closest_quads(tab, o, d, t_min, best, win, chunk):
+def _closest_quads(tab, o, d, t_min, best, win, chunk, inv, stats):
     """Loose quads (quad rows [0, nl_pad)), strict < against ``best``."""
     ox, oy, oz = (o[:, k:k + 1] for k in range(3))
     dx, dy, dz = (d[:, k:k + 1] for k in range(3))
-    for c0 in range(0, tab.nl_pad, chunk):
-        r = tab.quad[c0:min(c0 + chunk, tab.nl_pad)]
+    cull = tab.cull_q if tab.cull_pairs else None
+    for c0, m, vis in _chunks(tab.nl_pad, chunk, 0, cull, o, inv, t_min,
+                              lambda: best, stats, "quad_rows"):
+        r = tab.quad[c0:c0 + m]
         col = lambda k: r[:, k][None, :]
         nx, ny, nz = col(0), col(1), col(2)
         denom = dx * nx + dy * ny + dz * nz
@@ -468,18 +587,19 @@ def _closest_quads(tab, o, d, t_min, best, win, chunk):
         ok = (den_ok & (t_c >= t_min) & (alpha >= 0.0) & (alpha <= 1.0)
               & (beta >= 0.0) & (beta <= 1.0) & (col(12) > 0.5))
         mn, idx = _argmin_first(torch.where(ok, t_c, BIG))
-        better = mn < best
-        best = torch.where(better, mn, best)
-        win = torch.where(better, tab.s_pad + c0 + idx, win)
+        best, win = _take(mn, idx, vis, best, win, tab.s_pad + c0)
     return best, win
 
 
-def _closest_boxes(tab, o, d, t_min, best, win, chunk):
+def _closest_boxes(tab, o, d, t_min, best, win, chunk, inv, stats):
     """Axis-aligned box slabs (quad rows [q_pad, q_pad + b_pad)).  The
     winner is the quad row of the face hit: the first axis whose plane
     gives the entering (or, from inside, exiting) t."""
-    for c0 in range(0, tab.b_pad, chunk):
-        r = tab.quad[tab.q_pad + c0:tab.q_pad + min(c0 + chunk, tab.b_pad)]
+    cull = tab.cull_q if tab.cull_boxes else None
+    for c0, m, vis in _chunks(tab.b_pad, chunk, tab.nl_pad // CULL_C, cull,
+                              o, inv, t_min, lambda: best, stats,
+                              "box_rows"):
+        r = tab.quad[tab.q_pad + c0:tab.q_pad + c0 + m]
         col = lambda k: r[:, k][None, :]
         nears, fars, sides = [], [], []
         for ax in range(3):
@@ -516,10 +636,8 @@ def _closest_boxes(tab, o, d, t_min, best, win, chunk):
         cand = col(6).to(torch.int64) + torch.where(use_enter, off_e, off_x)
         # ties between boxes go to the lowest row (= lowest face row)
         mn, idx = _argmin_first(torch.where(valid, t_box, BIG))
-        better = mn < best
-        best = torch.where(better, mn, best)
-        cand_w = cand.gather(1, idx[:, None])[:, 0]
-        win = torch.where(better, tab.s_pad + cand_w, win)
+        best, win = _take(mn, cand.gather(1, idx[:, None])[:, 0], vis, best,
+                          win, tab.s_pad)
     return best, win
 
 
@@ -750,19 +868,28 @@ def _scatter(kind, fuzz, ior, front, is_light, n, d, a, u1, u2, u3, u4):
     return new, scattered
 
 
-def _bounce(tab, fp, o, d, tm, thr, acc, pix_ctr, samp, bounce, chunk):
+def _bounce(tab, fp, o, d, tm, thr, acc, pix_ctr, samp, bounce, chunk,
+            stats=None):
     """One bounce of live rays (all [N, ...]).  Returns (o, d, thr, acc,
     alive, win) after hit -> record -> texture -> emission -> scatter;
-    ``win`` is the winner's kernel row (-1 miss, np_rows + m medium m)."""
+    ``win`` is the winner's kernel row (-1 miss, np_rows + m medium m).
+    ``stats`` (a `cull_stats` dict) counts the bounces and the cull's
+    work."""
     dev = o.device
     dx, dy, dz = d.unbind(1)
     a = dx * dx + dy * dy + dz * dz
     inv_a = 1.0 / a
     akey = fp.t_min * a
-    best, win = _closest_spheres(tab, o, d, tm, a, akey, chunk)
+    inv = _recip(d) if tab.cull_pairs or tab.cull_boxes else None
+    if stats is not None:
+        stats["bounces"] += o.shape[0]
+    best, win = _closest_spheres(tab, o, d, tm, a, akey, fp.t_min, chunk,
+                                 inv, stats)
     best = torch.where(best < HALF_BIG, best * inv_a, BIG)
-    best, win = _closest_quads(tab, o, d, fp.t_min, best, win, chunk)
-    best, win = _closest_boxes(tab, o, d, fp.t_min, best, win, chunk)
+    best, win = _closest_quads(tab, o, d, fp.t_min, best, win, chunk, inv,
+                               stats)
+    best, win = _closest_boxes(tab, o, d, fp.t_min, best, win, chunk, inv,
+                               stats)
     best, win, is_med, alb = _media(tab, fp, o, d, a, inv_a, pix_ctr,
                                     samp, bounce, best, win)
     hit = best < HALF_BIG
@@ -830,12 +957,27 @@ def _bounce(tab, fp, o, d, tm, thr, acc, pix_ctr, samp, bounce, chunk):
     return p, new_d, thr, acc, alive, win
 
 
+def cull_stats() -> dict:
+    """Counters of the plain version's closest hit: lane-bounces, chunk
+    slab tests, the (ray, chunk) visits they let through, and the active
+    rows (padding included) of those chunks by kind."""
+    return dict.fromkeys(("bounces", "tests", "chunks", "sphere_rows",
+                          "quad_rows", "box_rows"), 0)
+
+
 def render_radiance_plain(tab: Mega2Tables, pix: torch.Tensor,
-                          fp: FrameParams, *, chunk: int = 256):
+                          fp: FrameParams, *, chunk: int = 256,
+                          stats: dict | None = None):
     """Radiance summed over ``fp.spp`` samples for pixel ids ``pix`` [P]
     (ids < 0 give zeros) -> [P, 3] f32.  Plain PyTorch, batched over rays;
     rays that end are dropped from the batch (each ray's arithmetic is
-    independent of the others, so this cannot change a value)."""
+    independent of the others, so this cannot change a value).  Culled
+    chunks gate each ray's result by its own slab test, as K1 does lane by
+    lane; the TPU kernel runs a chunk for a whole tile of rays if any of
+    them may meet its box, which finds the same winners wherever the f32
+    hit lies in its chunk's box (a rounding hit on a sphere the ray misses
+    can lie outside it: ROADMAP.md, queue 3).  ``stats`` (from
+    `cull_stats`) accumulates the counts of the run."""
     dev = pix.device
     P = pix.shape[0]
     lane = torch.zeros((P, 3), dtype=torch.float32, device=dev)
@@ -851,7 +993,7 @@ def render_radiance_plain(tab: Mega2Tables, pix: torch.Tensor,
         live = torch.arange(ids.shape[0], device=dev)
         for b in range(max(fp.max_bounces, 1)):
             o, d, thr, acc, alive, _ = _bounce(
-                tab, fp, o, d, tm, thr, acc, pix_ctr, samp, b, chunk)
+                tab, fp, o, d, tm, thr, acc, pix_ctr, samp, b, chunk, stats)
             if b + 1 >= fp.max_bounces:
                 alive = torch.zeros_like(alive)
             done[live[~alive]] = acc[~alive]
@@ -886,6 +1028,8 @@ class _Params(ctypes.Structure):
         ("tex_cols", ctypes.c_int), ("width", ctypes.c_int),
         ("height", ctypes.c_int), ("spp", ctypes.c_int),
         ("max_bounces", ctypes.c_int), ("seed", ctypes.c_uint32),
+        ("cull_s", ctypes.c_void_p), ("cull_q", ctypes.c_void_p),
+        ("cull_pairs", ctypes.c_int), ("cull_boxes", ctypes.c_int),
     ]
 
 
@@ -1016,15 +1160,20 @@ def _params(tab: Mega2Tables, fp: FrameParams) -> _Params:
         n_noise=tab.n_noise, n_images=tab.n_images,
         tex_cols=tab.texels.shape[1], width=fp.width, height=fp.height,
         spp=fp.spp, max_bounces=fp.max_bounces,
-        seed=fp.seed & 0xFFFFFFFF)
+        seed=fp.seed & 0xFFFFFFFF,
+        cull_s=tab.cull_s.data_ptr(), cull_q=tab.cull_q.data_ptr(),
+        cull_pairs=int(tab.cull_pairs), cull_boxes=int(tab.cull_boxes))
 
 
 def _check_tables(tab: Mega2Tables, dev) -> None:
     for name in ("sph", "quad", "attr", "med", "perm", "vec", "texels",
-                 "img_dims"):
+                 "img_dims", "cull_s", "cull_q"):
         t = getattr(tab, name)
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"table {name} must be contiguous on {dev}")
+    for name in ("sph", "quad", "attr", "med", "vec", "cull_s", "cull_q"):
+        if getattr(tab, name).dtype != torch.float32:
+            raise ValueError(f"table {name} must be float32")
     if tab.sph.data_ptr() % 16 or tab.quad.data_ptr() % 16:
         raise ValueError("tables sph and quad must be 16-byte aligned (K1 "
                          "copies their rows as float4)")

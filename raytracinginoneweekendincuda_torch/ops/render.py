@@ -99,6 +99,10 @@ def render(scene: SceneArrays, meta: SceneMeta, cfg: RenderConfig, *,
         raise NotImplementedError(
             f"engine {cfg.engine!r} is not ported yet; the port has "
             f"{', '.join(ENGINES)} (see ROADMAP.md, queue 1)")
+    if cfg.differentiable:
+        raise NotImplementedError(
+            "differentiable=True (the scan-form bounce loop) is not ported "
+            "yet (see ROADMAP.md, queue 1 item 1)")
     dev = resolve_device(device)
     engine = cfg.engine
     if engine == "mega2":

@@ -10,7 +10,12 @@ the hash of the main path's u8 frame, on one card:
 - K2 (``trace_tapes_cuda``): scene 0 at the training step's shape,
   640x360, spp 8, K 8 (1.84 M lanes), best of 5;
 - K5 (``mega_bounces_cuda``): scene 0's 8192-ray pool (the first refill of
-  a 64x32@4 frame), K 2, best of 5 batches of 20 launches.
+  a 64x32@4 frame), K 2, best of 5 batches of 20 launches;
+- K1 on the large world, ``models/scenes.sphere_field()`` (10,000
+  spheres) at 1440x720@10, 50 bounces, best of 3: as packed by default
+  (the chunk cull engaged, where the package has it) and, where the
+  packer takes the cull's thresholds, with the cull forced off; with the
+  frame's u8 hash, which the cull must not change.
 
 Times are CUDA events by ``tools/common.best_ms`` (each batch behind a
 sleep kernel, so they are device times).  The frame hash is the SHA-256
@@ -24,13 +29,16 @@ card and one JSON line; needs a CUDA device.
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import sys
 
 import numpy as np
 import torch
 
-from raytracinginoneweekendincuda_torch.models.scenes import build_scene
+from raytracinginoneweekendincuda_torch.models.scenes import (
+    build_scene, sphere_field,
+)
 from raytracinginoneweekendincuda_torch.ops import mega, mega2
 from raytracinginoneweekendincuda_torch.ops.raygen import (
     camera_tuple, generate_rays,
@@ -49,6 +57,7 @@ K1_FRAMES = ((0, 1440, 720, 10, 3), (0, 360, 180, 10, 3),
                  (7, 200), (8, 200), (9, 100))))   # scene, w, h, spp, repeats
 K2_SHAPE = (0, 640, 360, 8, 8)          # scene, w, h, spp, K
 K5_POOL = (0, 64, 32, 4)                # scene, w, h, spp
+FIELD_FRAME = (1440, 720, 10)           # the large world: w, h, spp
 
 
 def _frame(sid: int, w: int, h: int, spp: int, max_bounces: int, dev):
@@ -103,6 +112,33 @@ def k5_ms(dev) -> float:
                    launches=20)
 
 
+def field_times(dev) -> dict:
+    """K1 on the large world, packed by default and (where the packer has
+    the cull's thresholds) with the cull off; the default frame's hash."""
+    w, h, spp = FIELD_FRAME
+    scene, meta = compile_scene(sphere_field(), w, h, dtype=np.float32)
+    fp = mega2.frame_params(scene, RenderConfig(
+        width=w, height=h, samples_per_pixel=spp, max_bounces=50))
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    key = f"field10k_{w}x{h}@{spp}"
+    packs = {key: {}}
+    if "cull_min_chunks" in inspect.signature(
+            mega2.pack_mega2_tables).parameters:
+        packs[key + "_nocull"] = {"cull_min_chunks": 10 ** 9}
+    out = {}
+    for name, pack in packs.items():
+        tab = mega2.pack_mega2_tables(scene, meta, dev, **pack)
+        out[name + "_ms"] = best_ms(
+            lambda: mega2.render_radiance_cuda(tab, pix, fp), dev, 3)
+        print(f"  K1 {name}: {out[name + '_ms']:.3f} ms", flush=True)
+    tab = mega2.pack_mega2_tables(scene, meta, dev)
+    u8 = finalize(mega2.render_radiance_cuda(tab, pix, fp), spp,
+                  gamma=True, out_u8=True)
+    out[key + "_u8_sha256"] = hashlib.sha256(
+        u8.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
 def main(argv=None) -> dict:
     if argv:
         raise SystemExit(f"kernel_times takes no arguments, got {argv}")
@@ -112,6 +148,7 @@ def main(argv=None) -> dict:
     res = {"card": card, "package": mega2.__file__, **k1_times(dev)}
     res["k2_train_shape_ms"] = k2_ms(dev)
     res["k5_scene0_pool_ms"] = k5_ms(dev)
+    res.update(field_times(dev))
     print(json.dumps(res), flush=True)
     return res
 

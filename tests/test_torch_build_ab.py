@@ -1,0 +1,67 @@
+"""PyTorch port: ``tools/build_ab``'s code comparison on the CPU, on short
+PTX and SASS listings in the layout nvcc and cuobjdump print."""
+
+from raytracinginoneweekendincuda_torch.tools import build_ab
+from torch_threads import one_torch_thread  # noqa: F401
+
+ANON = "_ZN48_GLOBAL__N__{h}_15_mega2_render_cu_01e0c44e19"
+OLD = ANON + "mega2_render_kernelILb1EEEvN5mega26ParamsEPKiiPfPj"
+NEW = ANON + "mega2_render_kernelILb1ELb{c}EEEvN5mega26ParamsEPKiiPfPj"
+
+
+def _ptx(name: str, body: list) -> str:
+    lines = "\n".join(f"\t{ln}" for ln in body)
+    return (f".visible .entry {name}(\n\t.param .u64 {name}_param_0\n)\n{{\n"
+            f"{lines}\n}}\n")
+
+
+def _sass(name: str, body: list) -> str:
+    lines = "\n".join(f"        /*{16 * i:04x}*/                   {ln} ;"
+                      f"   /* 0x000000000000000000 */"
+                      for i, ln in enumerate(body))
+    return (f"\t\tFunction : {name}\n\t.headerflags @\"EF_CUDA_SM90\"\n"
+            f"{lines}\n")
+
+
+def test_kernel_names_and_template_arguments():
+    assert build_ab._key(OLD.format(h="7c573552")) == (
+        "mega2_render_kernel", ("1",))
+    assert build_ab._key(NEW.format(h="bb8f7670", c=0)) == (
+        "mega2_render_kernel", ("1", "0"))
+    assert build_ab._key(
+        "_ZN48_GLOBAL__N__7c573552_14_mega2_trace_cu_f025b89118"
+        "mega2_trace_kernelEN5mega26ParamsEPKiS3_PKfiPi") == (
+        "mega2_trace_kernel", ())
+
+
+def test_compare_matches_the_instantiation_without_the_later_option():
+    """The old kernel<1> is matched with the new kernel<1,0>, not
+    kernel<1,1>; PTX virtual registers, labels and the anonymous
+    namespace's hash, and SASS register numbers, do not count as
+    differences; a reordered pair of instructions does."""
+    body = ["mov.u32 %r1, %r2;", "ld.shared.f32 %f3, [" + ANON.format(
+        h="{h}") + "9smem_rowsE];", "$L__BB0_1:", "add.f32 %f4, %f3, %f3;"]
+    old_ptx = _ptx(OLD.format(h="7c573552"),
+                   [ln.format(h="7c573552") for ln in body])
+    same = [ln.format(h="bb8f7670").replace("%r1", "%r7") for ln in body]
+    swapped = [same[0], same[3], same[2], same[1]]
+    new_ptx = (_ptx(NEW.format(h="bb8f7670", c=0), same)
+               + _ptx(NEW.format(h="bb8f7670", c=1), swapped))
+    sass = ["MOV R1, c[0x0][0x28]", "FADD R4, R3, R3", "EXIT"]
+    old_sass = _sass(OLD.format(h="7c573552"), sass)
+    new_sass = (_sass(NEW.format(h="bb8f7670", c=0),
+                      [s.replace("R4", "R9") for s in sass])
+                + _sass(NEW.format(h="bb8f7670", c=1), sass[::-1]))
+    base = {"mega2_render": {"ptx": old_ptx, "sass": old_sass},
+            "mega2_trace": {"ptx": "", "sass": ""}}
+    other = {"mega2_render": {"ptx": new_ptx, "sass": new_sass},
+             "mega2_trace": {"ptx": "", "sass": ""}}
+    got = build_ab.compare(base, other)
+    assert got == {"mega2_render_kernel<1>": {
+        "matched": "mega2_render_kernel<1,0>",
+        "ptx_stretches": 0, "ptx_lines": [7, 7],
+        "sass_stretches": 0, "sass_lines": [3, 3]}}
+    other["mega2_render"]["ptx"] = _ptx(NEW.format(h="bb8f7670", c=0),
+                                        swapped)
+    assert build_ab.compare(base, other)[
+        "mega2_render_kernel<1>"]["ptx_stretches"] > 0

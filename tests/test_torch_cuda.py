@@ -123,16 +123,75 @@ def test_k1_sums_equal_plain_with_lane_refill(dev):
 def test_k1_large_world_equals_plain(dev):
     """The large world (``sphere_field``: 10,000 spheres, 643 KB of sphere
     rows) exceeds a block's shared memory: K1 reads its rows from global
-    memory, and its sums stay array-equal to the plain version's."""
+    memory, culling its 157 chunks, and its sums stay array-equal to the
+    plain version's."""
     w, h, spp = 16, 8, 2
     scene, meta = compile_scene(scenes.sphere_field(), w, h,
                                 dtype=np.float32)
     cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp)
     tab = mega2.pack_mega2_tables(scene, meta, dev)
+    assert tab.cull_pairs
     _assert_k1_equals_plain(
         tab, mega2.frame_params(scene, cfg),
         torch.arange(w * h, dtype=torch.int32, device=dev))
     assert mega2.render_radiance_cuda.shape[2] == 0   # rows in global memory
+
+
+CULL_OFF = dict(cull_min_chunks=10 ** 9)
+
+
+@pytest.mark.parametrize("n,smem", [(3200, True), (10_000, False)])
+def test_k1_culled_world_equals_unculled(n, smem, dev):
+    """The culled K1 on the two large worlds (rows in shared and in global
+    memory): array-equal to the plain version and to K1 with the cull
+    forced off."""
+    w, h, spp = 32, 16, 2
+    scene, meta = compile_scene(scenes.sphere_field(n), w, h,
+                                dtype=np.float32)
+    fp = mega2.frame_params(scene, RenderConfig(
+        width=w, height=h, samples_per_pixel=spp))
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    tab = mega2.pack_mega2_tables(scene, meta, dev)
+    off = mega2.pack_mega2_tables(scene, meta, dev, **CULL_OFF)
+    assert tab.cull_pairs and not off.cull_pairs
+    _assert_k1_equals_plain(tab, fp, pix)
+    assert (mega2.render_radiance_cuda.shape[2] > 0) == smem
+    np.testing.assert_array_equal(
+        mega2.render_radiance_cuda(tab, pix, fp).cpu().numpy(),
+        mega2.render_radiance_cuda(off, pix, fp).cpu().numpy())
+
+
+@pytest.mark.parametrize("sid", (0, 9))
+def test_k1_forced_cull_equals_plain(sid, dev):
+    """Every chunk of scenes 0 and 9 culled: K1 array-equal to the plain
+    version, which culls the same chunks ray by ray."""
+    scene, meta = compile_scene(scenes.build_scene(sid), 32, 16,
+                                dtype=np.float32)
+    cfg = RenderConfig(width=32, height=16, samples_per_pixel=2)
+    tab = mega2.pack_mega2_tables(scene, meta, dev, dense_max=0,
+                                  cull_min_chunks=0)
+    assert tab.cull_pairs
+    _assert_k1_equals_plain(tab, mega2.frame_params(scene, cfg),
+                            torch.arange(512, dtype=torch.int32, device=dev))
+
+
+def test_k2_culled_world_equals_unculled(dev):
+    """K2 on the 3,200-sphere world with the cull: the same tapes as K2
+    without it and as the plain version, on every lane."""
+    w, h, spp, K = 32, 16, 2, 8
+    scene, meta = compile_scene(scenes.sphere_field(3200), w, h,
+                                dtype=np.float32)
+    fp = mega2.frame_params(scene, RenderConfig(
+        width=w, height=h, samples_per_pixel=1, max_bounces=K))
+    pix, samp = mega2.tape_lanes(
+        torch.arange(w * h, dtype=torch.int32, device=dev), spp)
+    tab = mega2.pack_mega2_tables(scene, meta, dev)
+    off = mega2.pack_mega2_tables(scene, meta, dev, **CULL_OFF)
+    assert tab.cull_pairs and not off.cull_pairs
+    got = mega2.trace_tapes_cuda(tab, pix, samp, fp)
+    for want in (mega2.trace_tapes_cuda(off, pix, samp, fp),
+                 mega2.trace_tapes_plain(tab, pix, samp, fp)):
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
 def test_k1_rejects_bad_pixel_ids(dev):

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from raytracinginoneweekendincuda_torch.ops import mega2
-from raytracinginoneweekendincuda_torch.ops.render import render
+from raytracinginoneweekendincuda_torch.ops.render import ENGINES, render
 from raytracinginoneweekendincuda_torch.utils import cli
 from raytracinginoneweekendincuda_tpu.models import scenes
 from raytracinginoneweekendincuda_tpu.scene.compiler import compile_scene
@@ -138,11 +138,12 @@ def test_entry_points_have_no_cpu_default(entry):
 
 
 @pytest.mark.parametrize("tool", ("probe_pair", "probe_intmul",
-                                  "probe_mosaic", "kernel_times"))
+                                  "probe_mosaic", "kernel_times",
+                                  "build_ab"))
 def test_probe_tools_without_card_raise(tool):
     """The probe tools run on the card unless given ``--device cpu``
-    (tests/test_torch_probes.py runs them so); ``kernel_times`` runs only
-    on the card."""
+    (tests/test_torch_probes.py runs them so); ``kernel_times`` and
+    ``build_ab`` run only on the card."""
     import importlib
 
     _no_card()
@@ -199,6 +200,18 @@ def test_render_unported_engine_raises():
                                 dtype=np.float32)
     cfg = RenderConfig(width=16, height=8, samples_per_pixel=1,
                        engine="wavefront_bvh")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        render(scene, meta, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_render_differentiable_raises(engine):
+    """The scan-form loop that ``differentiable=True`` asks for is not
+    ported: ``render`` refuses it rather than running the other loop."""
+    scene, meta = compile_scene(scenes.build_scene(4), 16, 8,
+                                dtype=np.float32)
+    cfg = RenderConfig(width=16, height=8, samples_per_pixel=1,
+                       engine=engine, differentiable=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render(scene, meta, cfg, device="cpu")
 

@@ -1,10 +1,14 @@
 """PyTorch port: the mega2 table packer against the JAX package's packer.
 
 The port stores the attribute table row-major [NP, 40] instead of the
-TPU's transposed, 128-lane-padded [40, NP128], and drops the TPU-only
-tables (coef, cull AABBs, the bf16 image plane); every table it keeps must
-equal the JAX packer's exactly, row order and f32 rounding included (ties
-go to the lowest row, so the order decides winners).
+TPU's transposed, 128-lane-padded [40, NP128], and drops the tables that
+only serve the TPU's layout (the vestigial coef placeholder, the bf16
+image plane); every table it keeps must equal the JAX packer's exactly,
+row order and f32 rounding included (ties go to the lowest row, so the
+order decides winners).  The chunk-cull boxes and the rule that engages
+the cull are part of what the TPU kernel computes and are held to it on
+the ten scenes and on a world large enough to engage it
+(``sphere_field(3200)``, built through both packages' scene APIs).
 """
 
 import numpy as np
@@ -18,7 +22,11 @@ from raytracinginoneweekendincuda_tpu.ops import mega2 as jmega2
 from raytracinginoneweekendincuda_tpu.scene import api
 from raytracinginoneweekendincuda_tpu.scene.compiler import compile_scene
 from raytracinginoneweekendincuda_tpu.utils.config import RenderConfig
+from torch_field_scene import compiled_fields
 from torch_threads import one_torch_thread  # noqa: F401
+
+# the cull cases: the ten scenes and the 3,200-sphere world (51 chunks)
+CULL_CASES = [*range(10), "field"]
 
 
 @pytest.mark.parametrize("sid", range(10))
@@ -85,8 +93,60 @@ def test_packer_places_tables_on_the_device():
                                 dtype=np.float32)
     tab = tmega2.pack_mega2_tables(scene, meta, torch.device("cpu"))
     for name in ("sph", "quad", "attr", "med", "perm", "vec", "texels",
-                 "img_dims", "remap"):
+                 "img_dims", "remap", "cull_s", "cull_q"):
         t = getattr(tab, name)
         assert t.device.type == "cpu" and t.is_contiguous(), name
-    assert tab.sph.dtype == tab.attr.dtype == torch.float32
+    assert tab.sph.dtype == tab.attr.dtype == tab.cull_s.dtype \
+        == torch.float32
     assert tab.texels.dtype == tab.remap.dtype == torch.int32
+
+
+def _both_packers(case):
+    if case == "field":
+        js, jm, ts, tm = compiled_fields(3200, 16, 8)
+    else:
+        js, jm = compile_scene(scenes.build_scene(case), 16, 8,
+                               dtype=np.float32)
+        ts, tm = js, jm
+    return jmega2.pack_mega2_tables(js, jm), jm, \
+        tmega2.pack_mega2_tables(ts, tm, "cpu")
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_cull_tables_equal_jax_packer(case):
+    """The chunk boxes: spheres swept over their motion, loose quads over
+    their corners, then the box-slab chunks; f64 bounds stored in f32."""
+    jtab, _, tab = _both_packers(case)
+    np.testing.assert_array_equal(tab.cull_s.numpy(), np.asarray(jtab[4]))
+    np.testing.assert_array_equal(tab.cull_q.numpy(), np.asarray(jtab[5]))
+    assert tab.cull_s.dtype == tab.cull_q.dtype == torch.float32
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_cull_flags_follow_jax_rule(case):
+    """The JAX kernel culls pair chunks of a world that is not dense and
+    box chunks of any world, both only beyond CULL_MIN_CHUNKS chunks."""
+    assert (tmega2.DENSE_MAX, tmega2.CULL_MIN_CHUNKS) == \
+        (jmega2.DENSE_MAX, jmega2.CULL_MIN_CHUNKS)
+    jtab, jm, tab = _both_packers(case)
+    dense, nl_pad, b_pad = jmega2._pair_mode(jm, tab.s_pad, jtab[10])
+    many = (tab.s_pad + nl_pad + b_pad) // jmega2.CULL_C \
+        > jmega2.CULL_MIN_CHUNKS
+    assert tab.cull_pairs == (many and not dense)
+    assert tab.cull_boxes == (many and b_pad > 0)
+    # no reference scene engages the cull; the large world does
+    assert tab.cull_pairs == (case == "field")
+
+
+@pytest.mark.parametrize("sid", (0, 7, 9))
+def test_cull_thresholds_are_packer_arguments(sid):
+    """``dense_max=0, cull_min_chunks=0`` engages the cull on any world
+    (box chunks only where there are boxes); the tables do not change."""
+    scene, meta = compile_scene(scenes.build_scene(sid), 16, 8,
+                                dtype=np.float32)
+    tab = tmega2.pack_mega2_tables(scene, meta, "cpu")
+    forced = tmega2.pack_mega2_tables(scene, meta, "cpu", dense_max=0,
+                                      cull_min_chunks=0)
+    assert forced.cull_pairs and forced.cull_boxes == (tab.b_pad > 0)
+    for name in ("sph", "quad", "attr", "cull_s", "cull_q", "remap"):
+        assert torch.equal(getattr(tab, name), getattr(forced, name)), name

@@ -26,6 +26,8 @@ from raytracinginoneweekendincuda_torch.ops.render import render as trender
 from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
 from raytracinginoneweekendincuda_torch.utils.config import RenderConfig
 
+# flipped pixels allowed in small_case's 16x8 frame; a frame of n pixels
+# allows MAX_BAD * n // 128
 MAX_BAD = {0: 6, 1: 2, 4: 2, 6: 2, 7: 2, 8: 2}
 NOISE_IMAGE = (2, 3, 5, 9)
 
@@ -63,8 +65,9 @@ def check_bounds(sid: int, img: np.ndarray, ref: np.ndarray) -> None:
         assert diff.mean() < 2e-2
     else:
         nbad = int((diff.max(-1) > 1e-5).sum())
-        assert nbad <= MAX_BAD[sid], f"{nbad} pixels flipped " \
-                                     f"(max {diff.max():.2e})"
+        max_bad = MAX_BAD[sid] * diff.shape[0] * diff.shape[1] // 128
+        assert nbad <= max_bad, f"{nbad} pixels flipped, {max_bad} " \
+                                f"allowed (max {diff.max():.2e})"
         assert diff.mean() < 5e-3
 
 
