@@ -39,10 +39,12 @@ version.  Phases:
    plain version timed at scene 0 360x180@10 with that frame's bound and
    lane shares;
 7. K2 against ``trace_tapes_plain``: all ten scenes at 64x32, spp 2, K 8
-   (at most 0.1% of lanes may differ), and K2's in-kernel raygen against
-   external rays from ``generate_rays`` on a pinhole scene; and K2 on the
-   3,200-sphere world at 32x16, spp 2, K 8 with the cull, identical on
-   every lane to K2 without it and to the plain version;
+   (at most 0.1% of lanes may differ), and scene 0's pixel ids permuted
+   with 257 padding lanes (pix < 0, all -1) and mixed samples; K2's
+   in-kernel raygen against external rays from ``generate_rays`` on a
+   pinhole scene; and K2 on the 3,200-sphere world at 32x16, spp 2, K 8
+   with the cull, identical on every lane to K2 without it and to the
+   plain version;
 8. K3 / K4 against ``replay_plain`` and its autograd: all ten scenes at
    64x32, spp 1, K 8 (forward: K1's bounds; backward: d_rep rel-L2 <=
    1e-3, at most 1% of lanes whose d_rays or d_bg differ by more than
@@ -51,14 +53,17 @@ version.  Phases:
    (1.84 M lanes), Adam lr 1e-2, one warm-up and three timed steps, split
    into phases with CUDA events, with the K2 / K3 / K4 launch counts of
    that run; the device's busy share of a step (torch.profiler's kernel
-   time over the unprofiled step); K2 against its plain version on all
-   lanes, K3 and K4 against ``replay_plain`` and its autograd on all of
+   time over the unprofiled step); the lane shares of K2's tapes
+   (`tools/lane_share.trace_shares`) and K2 against its plain version on
+   all lanes, K3 and K4 against ``replay_plain`` and its autograd on all of
    sample 0's lanes (the shape the step launches them at), K4 also on
    every 97th pixel; each kernel timed alone against its plain version;
    then the scene-4 loss-decrease check (12x8, 4 steps);
-10. K6 against ``closest_geo_plain`` on all ten scenes, on the rays of the
-    first three iterations of a plain ``wavefront`` pool at 64x32@2
-    (``t`` bit-equal, ``prim`` equal on at least 99.9% of lanes);
+10. K6 against ``closest_geo_plain`` on all ten scenes (tables in shared
+    memory) and on ``sphere_field()`` (10,001 spheres: tables above the
+    opt-in, read from global memory), on the rays of the first three
+    iterations of a plain ``wavefront`` pool at 64x32@2 (``t`` bit-equal,
+    ``prim`` equal on at least 99.9% of lanes);
 11. K5 against ``mega_bounces_plain`` on scenes 0, 1, 4, 6, 7 and 8, two
     calls on a full 8192-lane pool (``ri`` equal on at least 99.9% of
     lanes, ``rf`` within K1's bounds); K5 timed on scene 0's pool, the
@@ -70,9 +75,9 @@ version.  Phases:
     kernel's device ms per launch and the device's busy share of a frame
     (torch.profiler); both frames held against K1's ``mega2`` frame and
     the plain ``wavefront`` frame, all on the card; K6 against its plain
-    version on the main path's first pool (131072 camera rays); scene 9
-    at 1440x720@10 through ``wavefront_pallas``, timed and held against
-    K1's frame;
+    version on the main path's first pool (131072 camera rays) of scenes
+    0 and 9, each timed; scene 9 at 1440x720@10 through
+    ``wavefront_pallas``, timed and held against K1's frame;
 13. the probes: ``main()`` of ``tools/probe_pair`` (C 512, REP 100 of the
     tool's 500, SUB 8, all 18 variants), ``probe_intmul`` (200 k of the
     tool's 5 M iterations) and ``probe_mosaic`` on the card, with every
@@ -87,7 +92,9 @@ version.  Phases:
     2 ulp) on the tool's inputs and on seeded random ones of the same
     shapes, its kernel, plain version and library call timed (P3 in
     batches of back-to-back launches behind a sleep kernel, with CUDA
-    events, as K2-K6);
+    events, as K2-K6); the two cases that lost to their library call
+    (``transposed_onehot_dot``, ``gather_sublane``) timed again, kernel
+    and library in turns, seven readings each, with their spread;
 14. the main path on the large world: ``sphere_field()`` (10,000 spheres,
     157 chunks) at 1440x720@10 through ``render``, best of 3, with K1's
     launch count; K1 with the cull and with it forced off on the whole
@@ -143,8 +150,11 @@ from raytracinginoneweekendincuda_torch.tools import (
     cull_share, probe_intmul, probe_mosaic, probe_pair,
 )
 from raytracinginoneweekendincuda_torch.tools.common import best_ms
+from raytracinginoneweekendincuda_torch.tools.kernel_times import (
+    first_pool, train_setup,
+)
 from raytracinginoneweekendincuda_torch.tools.lane_share import (
-    lane_shares, path_bounces,
+    lane_shares, path_bounces, trace_shares,
 )
 from raytracinginoneweekendincuda_torch.utils.benchmark import card_line
 
@@ -153,7 +163,8 @@ MAX_FRAC_ABOVE = 0.01     # at most 1% of pixels may differ
 MAX_MEAN = 2e-3           # mean absolute difference over all channels
 STRIDE = 97               # pixel-id stride of the main-path check subset
 TAPE_CHUNK = 1440 * 72    # pixels a K2 trace when counting a frame's paths
-NO_SPILLS = ("mega2_render", "mega_bounces")   # sized to hold no spills
+NO_SPILLS = ("mega2_render", "mega2_trace", "mega_bounces",
+             "closest_geo")                     # sized to hold no spills
 MAIN = (1440, 720, 10)    # the main path's frame: width, height, spp
 SMALL = (64, 32, 4)       # every scene, K1 against the plain version
 SIDE = (360, 180, 10)     # scene 9, and the K1 / plain timing of scene 0
@@ -163,7 +174,7 @@ FIELD_LARGE = 10_000      # and 157 chunks, rows in global memory
 CULL_FORCED = dict(dense_max=0, cull_min_chunks=0)   # cull every chunk
 CULL_OFF = dict(cull_min_chunks=10 ** 9)             # cull no chunk
 TRACE = (64, 32, 2, 8)    # every scene, K2 against the plain version
-TRACE_FIELD = (32, 16, 2, 8)   # K2 culled on sphere_field(FIELD_SMALL)
+TRACE_FIELD = (32, 16, 2, 8)   # K2 on sphere_field(FIELD_SMALL / _LARGE)
 REPLAY = (64, 32, 1, 8)   # every scene, K3 / K4 against the plain version
 TRAIN = (640, 360, 8, 8)  # the training step: width, height, spp, K
 MAX_DIFF_LANES = 0.001    # K2: at most 0.1% of lanes may differ
@@ -231,6 +242,8 @@ OPS_INTMUL = {"f32mul": 16, "i32mul": 8, "u32mul": 8, "u32addxor": 24,
               "u32mix": 12}
 INT32_LANES = 64          # INT32 lanes of a Hopper SM
 PROBE_BATCH = 20          # back-to-back launches a timed P3 batch
+P3_RETIME = ("transposed_onehot_dot", "gather_sublane")   # lost to their
+RETIME_ROUNDS = 7         # library call (PERF.md): timed again, in turns
 KERNEL_BATCH = 10         # back-to-back launches a timed K2-K6 batch
 
 
@@ -522,9 +535,31 @@ def phase_trace(dev) -> None:
         want = mega2.trace_tapes_plain(tab, pix, samp, fp)
         differ = float((got != want).any(0).float().mean())
         print(f"  scene {sid}: {int((got == want).all(0).sum())}/"
-              f"{pix.shape[0]} lanes identical", flush=True)
+              f"{pix.shape[0]} lanes identical; launch (blocks, threads, "
+              f"shared bytes) {mega2.trace_tapes_cuda.shape}", flush=True)
         if differ > MAX_DIFF_LANES:
             raise AssertionError(f"K2 differs on scene {sid}")
+        if mega2.trace_tapes_cuda.shape[2] == 0:
+            raise AssertionError(f"K2 did not stage scene {sid}'s rows")
+    # the lane queue on a permuted pixel list padded with pix < 0 lanes,
+    # samples mixed (scene 0: lens rays)
+    rs = np.random.default_rng(5)
+    ids = np.insert(rs.permutation(w * h), rs.integers(0, w * h, 257), -1)
+    lp = torch.as_tensor(ids.astype(np.int32), device=dev)
+    ls = torch.as_tensor(rs.integers(0, 2 * spp, ids.shape[0]).astype(
+        np.int32), device=dev)
+    scene, meta, cfg, _ = compile_cfg(0, w, h, 1, K)
+    tab = mega2.pack_mega2_tables(scene, meta, dev)
+    fp = mega2.frame_params(scene, cfg)
+    got = mega2.trace_tapes_cuda(tab, lp, ls, fp)
+    want = mega2.trace_tapes_plain(tab, lp, ls, fp)
+    same = int((got == want).all(0).sum())
+    print(f"  scene 0, {w * h} pixel ids permuted with 257 padding lanes: "
+          f"{same}/{lp.shape[0]} lanes identical; padding lanes all -1: "
+          f"{bool((got[:, lp < 0] == -1).all())}", flush=True)
+    if same < (1 - MAX_DIFF_LANES) * lp.shape[0] \
+            or not bool((got[:, lp < 0] == -1).all()):
+        raise AssertionError("K2 differs on the permuted, padded list")
     # in-kernel raygen against external rays (scene 4: pinhole camera)
     scene, meta, cfg, _ = compile_cfg(4, w, h, 1, K)
     tab = mega2.pack_mega2_tables(scene, meta, dev)
@@ -538,28 +573,44 @@ def phase_trace(dev) -> None:
           f"to the in-kernel raygen", flush=True)
     if same < (1 - MAX_DIFF_LANES) * pix.shape[0]:
         raise AssertionError("K2 with external rays differs")
-    # the chunk cull: the 3,200-sphere world, culled and not, every lane
+    # the chunk cull, culled and not, every lane: the 3,200-sphere world
+    # (rows in shared memory), culled K2 identical to the unculled K2 and
+    # to the plain version; the 10,000-sphere world (rows in global
+    # memory), each instantiation identical to the plain version on the
+    # same tables
     w, h, spp, K = TRACE_FIELD
     pix, samp = mega2.tape_lanes(
         torch.arange(w * h, dtype=torch.int32, device=dev), spp)
-    tapes = {}
-    for what, pack in (("culled", {}), ("unculled", CULL_OFF)):
-        scene, meta, tab = field_tables(FIELD_SMALL, w, h, dev, **pack)
-        fp = mega2.frame_params(scene, RenderConfig(
-            width=w, height=h, samples_per_pixel=1, max_bounces=K))
-        tapes[what] = mega2.trace_tapes_cuda(tab, pix, samp, fp)
-        if what == "culled":
-            if not tab.cull_pairs:
-                raise AssertionError("the tables do not cull")
-            tapes["plain"] = mega2.trace_tapes_plain(tab, pix, samp, fp)
-    for what in ("unculled", "plain"):
-        same = int((tapes["culled"] == tapes[what]).all(0).sum())
-        print(f"  sphere_field({FIELD_SMALL}) at {w}x{h}, spp {spp}, K {K}: "
-              f"culled K2 {same}/{pix.shape[0]} lanes identical to the "
-              f"{what} {'K2' if what == 'unculled' else 'version'}",
-              flush=True)
-        if not torch.equal(tapes["culled"], tapes[what]):
-            raise AssertionError(f"culled K2 differs from the {what} tapes")
+    for n, staged in ((FIELD_SMALL, True), (FIELD_LARGE, False)):
+        tapes = {}
+        for what, pack in (("culled", {}), ("unculled", CULL_OFF)):
+            scene, meta, tab = field_tables(n, w, h, dev, **pack)
+            fp = mega2.frame_params(scene, RenderConfig(
+                width=w, height=h, samples_per_pixel=1, max_bounces=K))
+            tapes[what] = mega2.trace_tapes_cuda(tab, pix, samp, fp)
+            shape = mega2.trace_tapes_cuda.shape
+            if (shape[2] > 0) != staged:
+                raise AssertionError(f"sphere_field({n}), {what}: K2's rows "
+                                     f"went to the wrong memory")
+            if tab.cull_pairs != (what == "culled"):
+                raise AssertionError(f"sphere_field({n}), {what}: the "
+                                     f"tables cull {tab.cull_pairs}")
+            plain = mega2.trace_tapes_plain(tab, pix, samp, fp)
+            same = int((tapes[what] == plain).all(0).sum())
+            print(f"  sphere_field({n}) at {w}x{h}, spp {spp}, K {K}: "
+                  f"{what} K2 {same}/{pix.shape[0]} lanes identical to the "
+                  f"plain version; launch (blocks, threads, shared bytes) "
+                  f"{shape}", flush=True)
+            if not torch.equal(tapes[what], plain):
+                raise AssertionError(f"sphere_field({n}): {what} K2 differs "
+                                     f"from the plain version")
+        if n == FIELD_SMALL:
+            same = int((tapes["culled"] == tapes["unculled"]).all(0).sum())
+            print(f"  sphere_field({n}): culled K2 {same}/{pix.shape[0]} "
+                  f"lanes identical to the unculled K2", flush=True)
+            if not torch.equal(tapes["culled"], tapes["unculled"]):
+                raise AssertionError("culled K2 differs from the unculled "
+                                     "tapes")
 
 
 def grad_check(tt, rays, tape, pc, bg, g, t_min, what: str) -> dict:
@@ -634,18 +685,10 @@ def phase_replay(dev) -> None:
 def phase_train(dev, card: str) -> dict:
     """The training step at full width; returns the kernels' numbers."""
     W, H, spp, K = TRAIN
-    scene, meta, cfg, _ = compile_cfg(0, W, H, spp, K)
     P, L = W * H, W * H * spp
     pix_all = torch.arange(P, dtype=torch.int32, device=dev)
-    # target: K1's render of the scene; the start: albedos perturbed
-    target = mega2.render_radiance_cuda(
-        mega2.pack_mega2_tables(scene, meta, dev), pix_all,
-        mega2.frame_params(scene, cfg)) / float(spp)
-    start = scene._replace(tex_c0=np.clip(
-        np.asarray(scene.tex_c0) * 0.5 + 0.2, 0.0, 1.0).astype(np.float32))
-    state = train.init_state(start, lambda ps: torch.optim.Adam(ps, lr=1e-2),
-                             device=dev)
-    step = train.make_train_step_mega2(start, meta, cfg)
+    # target: K1's render of scene 0; the start: albedos perturbed
+    start, meta, cfg, target, state, step = train_setup((0, *TRAIN), dev)
     pix = np.arange(P, dtype=np.int32)
 
     counters = (mega2.trace_tapes_cuda, rc.replay_fwd_cuda,
@@ -714,6 +757,11 @@ def phase_train(dev, card: str) -> dict:
     fp = mega2.frame_params(sc_np, cfg)
     lane_pix, lane_samp = mega2.tape_lanes(pix_all, spp)
     tapes = mega2.trace_tapes_cuda(tab, lane_pix, lane_samp, fp)
+    print(f"  K2 launch (blocks, threads, shared bytes) "
+          f"{mega2.trace_tapes_cuda.shape}; lane shares of its tapes (one "
+          f"thread a lane keeps 'nested' busy): "
+          f"{json.dumps(trace_shares(tapes, tab.attr, tab.np_rows, spp))}",
+          flush=True)
     k2_plain_ms, plain_tapes = once_ms(lambda: mega2.trace_tapes_plain(
         tab, lane_pix, lane_samp, fp))
     same = float((tapes == plain_tapes).all(0).float().mean())
@@ -815,14 +863,16 @@ def phase_train(dev, card: str) -> dict:
     return recs
 
 
-def pool_rays(sid: int, dev):
-    """(ray_pack [N, 8], sphere table, quad table, t_min) of scene ``sid``:
-    the rays of the first iterations of a plain ``wavefront`` pool.  Every
-    work item of the POOL frame fits in one pool, so the pool starts with
-    all its camera rays and then bounces them (`integrator.bounce_step`
-    with the brute-force hit, as the engine does)."""
+def pool_rays(desc, dev):
+    """(ray_pack [N, 8], sphere table, quad table, t_min) of the scene
+    description ``desc``: the rays of the first iterations of a plain
+    ``wavefront`` pool.  Every work item of the POOL frame fits in one
+    pool, so the pool starts with all its camera rays and then bounces
+    them (`integrator.bounce_step` with the brute-force hit, as the engine
+    does)."""
     w, h, spp, iters = POOL
-    scene, meta, cfg, _ = compile_cfg(sid, w, h, spp)
+    scene, meta = compile_scene(desc, w, h, dtype=np.float32)
+    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp)
     st = hit.scene_tensors(scene, dev)
     hit_fn = hit.brute_force_hit_fn(st, meta)
     k = torch.arange(w * h * spp, device=dev)
@@ -859,9 +909,21 @@ def check_k6(rays, sph, quad, t_min: float, what: str) -> float:
 
 
 def phase_closest_geo(dev) -> None:
-    for sid in range(10):
-        rays, sph, quad, t_min = pool_rays(sid, dev)
-        check_k6(rays, sph, quad, t_min, f"scene {sid}")
+    """K6 on every scene's pool (tables in shared memory), and on the
+    large world's pool, whose tables exceed the opt-in (global memory)."""
+    for what, desc, staged in (
+            *((f"scene {sid}", scene_desc(sid)[0], True)
+              for sid in range(10)),
+            (f"sphere_field({FIELD_LARGE})", sphere_field(FIELD_LARGE),
+             False)):
+        rays, sph, quad, t_min = pool_rays(desc, dev)
+        check_k6(rays, sph, quad, t_min, what)
+        shape = pallas_hit.closest_geo_cuda.shape
+        print(f"    launch (blocks, threads, shared bytes) {shape}; tables "
+              f"{nbytes(sph, quad)} bytes", flush=True)
+        if (shape[2] > 0) != staged:
+            raise AssertionError(f"{what}: K6's tables went to the wrong "
+                                 f"memory")
 
 
 def active_prims(tab_s, row_s: int, tab_q, row_q: int):
@@ -962,28 +1024,27 @@ def phase_xla_frames(dev, card: str) -> dict:
     flat = lambda img: np.ascontiguousarray(img).reshape(-1, 3)
 
     # K6 at the main path's first pool: the camera rays of work items
-    # 0 .. P-1
+    # 0 .. P-1; scene 0's record, scene 9's (the largest tables) beside it
     P = min(cfg.rays_per_batch, w * h * spp)
-    k = torch.arange(P, device=dev)
-    o, d, tm, _ = generate_rays(camera_tuple(scene.camera), k % (w * h),
-                                k // (w * h), w, h, cfg.seed)
-    rays = torch.cat([o, d, tm[:, None], torch.zeros_like(tm)[:, None]],
-                     dim=1).contiguous()
-    sph, quad = pallas_hit.pack_geometry(scene, dev)
-    err = check_k6(rays, sph, quad, cfg.t_min, "scene 0's first pool")
-    ms = device_ms(lambda: pallas_hit.closest_geo_cuda(rays, sph, quad,
-                                                       cfg.t_min),
-                   dev)
-    plain_ms, _ = once_ms(lambda: pallas_hit.closest_geo_plain(
-        rays, sph, quad, cfg.t_min))
-    n_s, n_q = active_prims(sph, pallas_hit.SPH_ACTIVE, quad,
-                            pallas_hit.QUAD_ACTIVE)
-    k6 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-              bound=bound(nbytes(sph, quad) + 40 * P,
-                          P * (n_s * OPS_XSPHERE + n_q * OPS_XQUAD)))
-    print(f"  K6 on {P} rays: {ms:.4f} ms a launch (CUDA events), plain "
-          f"{plain_ms:.2f} ms; {n_s} spheres, {n_q} quads; bound "
-          f"{k6['bound'][0]:.4f} ms ({k6['bound'][1]})", flush=True)
+    for sid in (9, 0):
+        sc = scene if sid == 0 else compile_cfg(sid, w, h, spp)[0]
+        rays, sph, quad = first_pool(sc, w, h, P, cfg.seed, dev)
+        err = check_k6(rays, sph, quad, cfg.t_min, f"scene {sid}'s first "
+                       f"pool")
+        shape = pallas_hit.closest_geo_cuda.shape
+        ms = device_ms(lambda: pallas_hit.closest_geo_cuda(
+            rays, sph, quad, cfg.t_min), dev)
+        plain_ms, _ = once_ms(lambda: pallas_hit.closest_geo_plain(
+            rays, sph, quad, cfg.t_min))
+        n_s, n_q = active_prims(sph, pallas_hit.SPH_ACTIVE, quad,
+                                pallas_hit.QUAD_ACTIVE)
+        k6 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                  bound=bound(nbytes(sph, quad) + 40 * P,
+                              P * (n_s * OPS_XSPHERE + n_q * OPS_XQUAD)))
+        print(f"  K6 on scene {sid}'s {P} rays: {ms:.4f} ms a launch (CUDA "
+              f"events), plain {plain_ms:.2f} ms; {n_s} spheres, {n_q} "
+              f"quads; bound {k6['bound'][0]:.4f} ms ({k6['bound'][1]}); "
+              f"launch (blocks, threads, shared bytes) {shape}", flush=True)
 
     k1_img = flat(render(scene, meta, cfg, device=dev))
     plain_s, plain_img = once_s(lambda: flat(render(
@@ -1102,6 +1163,15 @@ PROBE_LIBRARY = {
     "trig": lambda x: torch.acos(torch.clamp(x, -1.0, 1.0))
     + torch.atan2(x, 1.0 - x),
 }
+
+
+def library_args(name: str, args) -> list:
+    """A P3 case's inputs as its library call takes them (torch gathers
+    with int64 indices)."""
+    largs = list(args)
+    if "gather" in name:
+        largs[1] = args[1].long()
+    return largs
 
 
 def probe_ops(name: str, args, out) -> int:
@@ -1267,9 +1337,7 @@ def phase_probes(dev, k1_pair) -> dict:
         lib = PROBE_LIBRARY.get(name)
         lib_ms = None
         if lib is not None:
-            largs = list(args)
-            if "gather" in name:           # torch indexes with int64
-                largs[1] = args[1].long()
+            largs = library_args(name, args)
             lib_ms = best_ms(lambda: lib(*largs), dev, 5, PROBE_BATCH)
         tensors = [a for a in args if torch.is_tensor(a)]
         b = bound(nbytes(*tensors, got), probe_ops(name, args, got))
@@ -1280,6 +1348,23 @@ def phase_probes(dev, k1_pair) -> dict:
               f"{kernel} {ms:.4f} ms (back to back), plain {plain_ms:.2f} "
               f"ms, library {lib_txt}, bound {b[0]:.6f} ms ({b[1]})",
               flush=True)
+    # the cases that lost to their library call: kernel and library timed
+    # in turns, RETIME_ROUNDS readings each, with their spread
+    for name in P3_RETIME:
+        case = probe_mosaic.CASES[name]
+        args = case.inputs(dev)
+        lib, largs = PROBE_LIBRARY[name], library_args(name, args)
+        k_ms, l_ms = [], []
+        for _ in range(RETIME_ROUNDS):
+            k_ms.append(best_ms(lambda: case.cuda(*args), dev, 5,
+                                PROBE_BATCH))
+            l_ms.append(best_ms(lambda: lib(*largs), dev, 5, PROBE_BATCH))
+        print(f"  P3 {name} re-timed, kernel and library in turns, "
+              f"{RETIME_ROUNDS} readings each (ms, median [min, max]): "
+              f"kernel {np.median(k_ms):.5f} [{min(k_ms):.5f}, "
+              f"{max(k_ms):.5f}], library {np.median(l_ms):.5f} "
+              f"[{min(l_ms):.5f}, {max(l_ms):.5f}]; kernel / library "
+              f"{np.median(k_ms) / np.median(l_ms):.3f}", flush=True)
     # the record sums the cases with a library call, so that its ms, plain,
     # bound and library are one workload; the others stand beside it
     with_lib = [n for n, r in p3.items() if r["library_ms"] is not None]

@@ -32,7 +32,8 @@
 //   not (samples are summed in order and the RNG is keyed on pixel, sample
 //   and bounce), so the output is bit-identical from run to run.
 // - A persistent grid: the SMs times the blocks a SM holds at this block
-//   size and shared memory, and never more warps than the ids need.
+//   size and shared memory, and never more warps than the ids need
+//   (persistent_grid.cuh).
 // - Pair rows in shared memory.  Each block copies the sphere, loose-quad
 //   and box rows once (float4 copies); the pair loops then read them from
 //   shared memory, which K1 needs: with the rows in global memory (L1
@@ -55,6 +56,7 @@
 #include <cuda_runtime.h>
 
 #include "mega2_bounce.cuh"
+#include "persistent_grid.cuh"
 
 namespace {
 
@@ -63,7 +65,6 @@ namespace {
 // scene 9's 96 KB of pair rows fit a SM's shared memory.
 constexpr int kBlock = 384;
 constexpr int kMinBlocks = 2;
-constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
 template <bool kSmemRows, bool kCull>
@@ -168,76 +169,29 @@ mega2_render_kernel(const mega2::Params p, const int* __restrict__ pix,
   }
 }
 
-// What a device holds, queried once (when the shared-memory limit of K1's
-// shared-row instantiations is also raised to the device's opt-in size):
-// its SMs and its opt-in shared memory a block; and, for each
-// instantiation, its resident blocks a SM at the last shared size
-// launched.
-struct DeviceInfo {
-  int sms = 0, smem_optin = 0;
-  int smem_bytes[4] = {-1, -1, -1, -1}, per_sm[4] = {0, 0, 0, 0};
-};
-
-cudaError_t device_info(int dev, DeviceInfo*& info) {
-  static DeviceInfo cache[kMaxDevices];
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  info = &cache[dev];
-  if (info->sms > 0) return cudaSuccess;
-  int sms = 0, optin = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(mega2_render_kernel<true, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(mega2_render_kernel<true, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
-  if (err != cudaSuccess) return err;
-  info->smem_optin = optin;
-  info->sms = sms;
-  return cudaSuccess;
-}
-
 template <bool kSmemRows, bool kCull>
 cudaError_t launch(const mega2::Params& p, const int* pix, int n,
-                   float* out, unsigned* queue, DeviceInfo* info,
-                   int smem_bytes, int shape[3], cudaStream_t stream) {
-  const int v = 2 * kSmemRows + kCull;
-  if (info->smem_bytes[v] != smem_bytes) {
-    int per_sm = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, mega2_render_kernel<kSmemRows, kCull>, kBlock, smem_bytes);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-    info->per_sm[v] = per_sm;
-    info->smem_bytes[v] = smem_bytes;
-  }
-  const int threads = n < kBlock ? ((n + 31) / 32) * 32 : kBlock;
-  const int need = (n + threads - 1) / threads;
-  const int resident = info->sms * info->per_sm[v];
-  shape[0] = need < resident ? need : resident;
-  shape[1] = threads;
-  shape[2] = smem_bytes;
+                   float* out, unsigned* queue, int smem_bytes, int shape[3],
+                   cudaStream_t stream) {
+  const cudaError_t err = persistent::launch_shape(
+      mega2_render_kernel<kSmemRows, kCull>, n,
+      persistent::queue_threads(n, kBlock), smem_bytes, shape);
+  if (err != cudaSuccess) return err;
   mega2_render_kernel<kSmemRows, kCull>
-      <<<shape[0], threads, smem_bytes, stream>>>(p, pix, n, out, queue);
+      <<<shape[0], shape[1], smem_bytes, stream>>>(p, pix, n, out, queue);
   return cudaGetLastError();
 }
 
 template <bool kCull>
 cudaError_t launch_rows(const mega2::Params& p, const int* pix, int n,
-                        float* out, unsigned* queue, DeviceInfo* info,
+                        float* out, unsigned* queue, int smem_optin,
                         int shape[3], cudaStream_t stream) {
   const long rows = (long)p.s_pad + p.nl_pad + p.b_pad;
   const long bytes = rows * mega2::SPH_COLS * (long)sizeof(float);
-  if (bytes > 0 && bytes <= info->smem_optin)
-    return launch<true, kCull>(p, pix, n, out, queue, info, (int)bytes,
-                               shape, stream);
-  return launch<false, kCull>(p, pix, n, out, queue, info, 0, shape, stream);
+  if (bytes > 0 && bytes <= smem_optin)
+    return launch<true, kCull>(p, pix, n, out, queue, (int)bytes, shape,
+                               stream);
+  return launch<false, kCull>(p, pix, n, out, queue, 0, shape, stream);
 }
 
 }  // namespace
@@ -247,29 +201,27 @@ cudaError_t launch_rows(const mega2::Params& p, const int* pix, int n,
 // one device uint32, zero at launch.  The pair rows go to shared memory
 // when they fit a block's opt-in shared memory, else the kernel reads them
 // from global memory; the culled instantiation runs when the tables cull
-// pair or box chunks.  The grid is persistent: at most the blocks the card
-// holds at once, never more threads than ids (rounded up to a warp).
-// `shape` receives (blocks, threads a block, shared bytes: 0 for rows in
-// global memory).  Returns a CUDA error code: the launch's
-// cudaGetLastError(), or the error of a device query.
+// pair or box chunks.  The grid is persistent (persistent_grid.cuh): at
+// most the blocks the card holds at once, never more threads than ids
+// (rounded up to a warp).  `shape` receives (blocks, threads a block,
+// shared bytes: 0 for rows in global memory).  Returns a CUDA error code:
+// the launch's cudaGetLastError(), or the error of a device query.
 extern "C" int mega2_render_launch(const mega2::Params* params,
                                    const void* pix, int n, void* out,
                                    void* queue, int* shape, void* stream) {
   shape[0] = shape[1] = shape[2] = 0;
   if (n < 1) return (int)cudaGetLastError();
-  int dev = 0;
-  DeviceInfo* info = nullptr;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = device_info(dev, info);
+  int sms = 0, optin = 0;
+  cudaError_t err = persistent::device_limits(sms, optin);
   if (err != cudaSuccess) return (int)err;
   const mega2::Params& p = *params;
   if (p.cull_pairs || p.cull_boxes)
     err = launch_rows<true>(p, (const int*)pix, n, (float*)out,
-                            (unsigned*)queue, info, shape,
+                            (unsigned*)queue, optin, shape,
                             (cudaStream_t)stream);
   else
     err = launch_rows<false>(p, (const int*)pix, n, (float*)out,
-                             (unsigned*)queue, info, shape,
+                             (unsigned*)queue, optin, shape,
                              (cudaStream_t)stream);
   return (int)err;
 }

@@ -1176,7 +1176,7 @@ def _check_tables(tab: Mega2Tables, dev) -> None:
             raise ValueError(f"table {name} must be float32")
     if tab.sph.data_ptr() % 16 or tab.quad.data_ptr() % 16:
         raise ValueError("tables sph and quad must be 16-byte aligned (K1 "
-                         "copies their rows as float4)")
+                         "and K2 copy their rows as float4)")
 
 
 def load_trace_kernel():
@@ -1186,7 +1186,8 @@ def load_trace_kernel():
     lib, record = load_library("mega2_trace")
     lib.mega2_trace_launch.argtypes = [
         ctypes.POINTER(_Params), ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     lib.mega2_trace_launch.restype = ctypes.c_int
     lib.mega2_trace_params_size.argtypes = []
     lib.mega2_trace_params_size.restype = ctypes.c_int
@@ -1200,7 +1201,10 @@ def trace_tapes_cuda(tab: Mega2Tables, pix: torch.Tensor, samp: torch.Tensor,
                      rays: torch.Tensor | None = None) -> torch.Tensor:
     """K2 on the card: `trace_tapes_plain`'s tape [max_bounces, N] i32 for
     int32 ``pix`` / ``samp`` [N] (and optional f32 ``rays`` [N, 7]) on a
-    CUDA device.  Launches on the current stream, no synchronisation."""
+    CUDA device.  Launches on the current stream (a memset of the tape and
+    of the lane queue, then the kernel), no synchronisation;
+    ``trace_tapes_cuda.shape`` holds the last launch's (blocks, threads a
+    block, shared bytes: 0 when the pair rows stay in global memory)."""
     dev = pix.device
     if dev.type != "cuda":
         raise ValueError(f"trace_tapes_cuda needs CUDA tensors, got {dev}")
@@ -1220,21 +1224,25 @@ def trace_tapes_cuda(tab: Mega2Tables, pix: torch.Tensor, samp: torch.Tensor,
     rays = rays.contiguous() if rays is not None else None
     lib, _ = load_trace_kernel()
     out = torch.empty((fp.max_bounces, n), dtype=torch.int32, device=dev)
+    queue = torch.empty(1, dtype=torch.int32, device=dev)
     prm = _params(tab, fp)
+    shape = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mega2_trace_launch(
             ctypes.byref(prm), pix.data_ptr(), samp.data_ptr(),
             rays.data_ptr() if rays is not None else None, n,
-            out.data_ptr(), stream)
+            out.data_ptr(), queue.data_ptr(), shape, stream)
     if err != 0:
         raise RuntimeError(f"mega2 trace kernel launch failed: CUDA error "
                            f"{err}")
     trace_tapes_cuda.launches += 1
+    trace_tapes_cuda.shape = tuple(shape)
     return out
 
 
 trace_tapes_cuda.launches = 0
+trace_tapes_cuda.shape = None
 
 
 def trace_tapes(tab: Mega2Tables, pix: torch.Tensor, samp: torch.Tensor,

@@ -6,10 +6,13 @@ K6 (``csrc/closest_geo.cu``) replaces the Pallas kernel
 closest geometry hit ``(t, prim)`` over all spheres, then all quads, for a
 batch of rays.  The first index wins a tie, spheres use ``t > t_min`` and
 quads ``t >= t_min``; ``prim`` is a padded-table id (sphere lane, or
-``S_pad`` + quad lane), -1 for a miss.  One thread per ray walks every
-active primitive (``csrc/xla_pair.cuh``, shared with K5): FP32 ALU work in
-the pair loop bounds it; the only device-memory traffic is the ray in and
-the winner out, 40 bytes a ray, and the tables, which stay in L2.
+``S_pad`` + quad lane), -1 for a miss.  A thread of a persistent grid
+takes one ray at a time and walks every active primitive
+(``csrc/xla_pair.cuh``, shared with K5), reading each primitive's row from
+its block's copy of the tables in shared memory (or from global memory,
+in the other instantiation, when the rows exceed the opt-in): the pair
+loop's instruction issue bounds it; the only device-memory traffic is the
+ray in and the winner out, 40 bytes a ray, and the tables.
 
 `closest_geo_plain` is the same arithmetic in PyTorch, in the same order
 (frac, centre, oc, half-b, cc, disc, inv_a = 1/a, then the roots).
@@ -164,7 +167,7 @@ def load_kernel():
     lib, record = load_library("closest_geo")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.closest_geo_launch.argtypes = [p, i, p, i, p, i, ctypes.c_float, p,
-                                       p, p]
+                                       p, ctypes.POINTER(i), p]
     lib.closest_geo_launch.restype = ctypes.c_int
     return lib, record
 
@@ -180,7 +183,9 @@ def _check_f32(name: str, x: torch.Tensor, dev, rows: int | None = None):
 
 def closest_geo_cuda(ray_pack, sph_tab, quad_tab, t_min: float):
     """K6 on the card: `closest_geo_plain`'s (t, prim) for CUDA tensors.
-    Launches on the current stream and does not synchronise."""
+    Launches on the current stream and does not synchronise;
+    ``closest_geo_cuda.shape`` holds the last launch's (blocks, threads a
+    block, shared bytes: 0 when the tables stay in global memory)."""
     dev = ray_pack.device
     if dev.type != "cuda":
         raise ValueError(f"closest_geo_cuda needs CUDA tensors, got {dev}")
@@ -193,20 +198,23 @@ def closest_geo_cuda(ray_pack, sph_tab, quad_tab, t_min: float):
     lib, _ = load_kernel()
     t = torch.empty(n, dtype=torch.float32, device=dev)
     p = torch.empty(n, dtype=torch.int32, device=dev)
+    shape = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.closest_geo_launch(
             ray_pack.data_ptr(), n, sph_tab.data_ptr(), sph_tab.shape[1],
             quad_tab.data_ptr(), quad_tab.shape[1], float(np.float32(t_min)),
-            t.data_ptr(), p.data_ptr(), stream)
+            t.data_ptr(), p.data_ptr(), shape, stream)
     if err != 0:
         raise RuntimeError(f"closest_geo kernel launch failed: CUDA error "
                            f"{err}")
     closest_geo_cuda.launches += 1
+    closest_geo_cuda.shape = tuple(shape)
     return t, p
 
 
 closest_geo_cuda.launches = 0
+closest_geo_cuda.shape = None
 
 
 def closest_geo(ray_pack, sph_tab, quad_tab, t_min: float):

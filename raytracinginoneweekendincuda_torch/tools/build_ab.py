@@ -1,5 +1,5 @@
-"""K1 and K2 of several checkouts of the package, built alike, compared as
-code and timed in one call:
+"""K1, K2, K5 and K6 of several checkouts of the package, built alike,
+compared as code and by their outputs, and timed in one call:
 
     python -m raytracinginoneweekendincuda_torch.tools.build_ab \
         CHECKOUT [CHECKOUT ...] [--order 0,1,1,0]
@@ -8,11 +8,11 @@ Each CHECKOUT is a directory that holds the package (a ``git archive`` of
 a commit, unpacked).  For each entry of ``--order`` (default: the first
 checkout, the others forward, the others back, the first again -- P C C P
 for two), the checkout's package is copied into ``build/ab/work/``, the
-same directory for every run; its ``csrc/mega2_render.cu`` and
-``csrc/mega2_trace.cu`` are compiled by the checkout's own nvcc command
-(``utils/cuda_build``), once more to PTX, and put where that package
-loads its cached builds; then ``tools/kernel_times.py`` of this package
-runs on it.
+same directory for every run; its ``csrc/mega2_render.cu``,
+``mega2_trace.cu``, ``mega_bounces.cu`` and ``closest_geo.cu`` are
+compiled by the checkout's own nvcc command (``utils/cuda_build``), once
+more to PTX, and put where that package loads its cached builds; then
+``tools/kernel_times.py`` of this package runs on it.
 
 Then each kernel of the checkout run first is matched with the kernel of
 each other checkout run that has the same template arguments followed
@@ -21,9 +21,11 @@ as the chunk cull), and the stretches in which their PTX (names, the hash
 that names an anonymous namespace, which follows the build's directory,
 virtual registers and labels normalised away) and SASS (register numbers
 normalised away) differ are counted; a checkout built twice is also
-compared with itself.  Prints one JSON line: the runs in order, each with
-kernel_times' result, and the code comparisons.  Needs nvcc, cuobjdump
-and a CUDA device.
+compared with itself.  And for each output hash of kernel_times (a
+kernel's output on one frame or pool), whether every run gave the hash of
+the checkout run first.  Prints one JSON line: the runs in order, each
+with kernel_times' result, the code comparisons and the output check.
+Needs nvcc, cuobjdump and a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from ..ops.render import resolve_device
 from ..utils import cuda_build
 
 PKG = "raytracinginoneweekendincuda_torch"
-KERNELS = ("mega2_render", "mega2_trace")
+KERNELS = ("mega2_render", "mega2_trace", "mega_bounces", "closest_geo")
 WORK = os.path.join(os.path.dirname(cuda_build.PKG_DIR), "build", "ab",
                     "work")
 KERNEL_TIMES = os.path.join(cuda_build.PKG_DIR, "tools", "kernel_times.py")
@@ -86,7 +88,8 @@ def build(checkout: str) -> dict:
 
 def _key(mangled: str):
     """(kernel name, template arguments as '0' / '1') of a mangled name."""
-    m = re.search(r"(mega2_[a-z]+_kernel)(I((?:Lb[01]E)+)E)?", mangled)
+    m = re.search(r"((?:%s)_kernel)(I((?:Lb[01]E)+)E)?" % "|".join(KERNELS),
+                  mangled)
     return m.group(1), tuple(re.findall(r"Lb([01])E", m.group(3) or ""))
 
 
@@ -144,6 +147,13 @@ def compare(base: dict, other: dict) -> dict:
     return out
 
 
+def same_outputs(runs: list) -> dict:
+    """For each output hash (a ``*_sha256`` key) of the first run, whether
+    every run that reports it gave the same hash."""
+    return {k: all(r.get(k, v) == v for r in runs)
+            for k, v in runs[0].items() if k.endswith("_sha256")}
+
+
 def main(argv=None) -> dict:
     resolve_device("cuda")
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -172,6 +182,7 @@ def main(argv=None) -> dict:
     shutil.rmtree(WORK, ignore_errors=True)
     out = {"checkouts": args.checkouts, "order": order, "runs": runs,
            "rebuilt_sass_identical": rebuilt,
+           "outputs_equal_first": same_outputs(runs),
            "code_vs_first": {str(i): compare(code[order[0]], code[i])
                              for i in sorted(code) if i != order[0]}}
     print(json.dumps(out), flush=True)

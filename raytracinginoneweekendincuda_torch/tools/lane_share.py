@@ -15,13 +15,35 @@ being 32 consecutive pixel ids:
 
 A lane refilled from a pixel queue idles only in the frame's tail, so its
 share is close to 1 on any frame that fills the card several times.
+
+K2's tapes are sample-major (``ops/mega2.tape_lanes``: lane ``s*P + p``),
+so one thread a lane -- K2 without a lane queue -- keeps the ``nested``
+share of its thread slots busy (`trace_shares`).  From the command line,
+the shares of the tapes of a trace at the training step's shape
+(``STEP``: scene 0, 640x360, spp 8, K 8), on the card unless given
+``--device cpu`` (the plain version; ``--row-stride R`` traces every R-th
+row of pixels, whole rows, to keep a CPU run small):
+
+    python -m raytracinginoneweekendincuda_torch.tools.lane_share \
+        [--row-stride 1] [--device cpu]
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+
+import numpy as np
 import torch
 
+from ..models.scenes import build_scene
+from ..ops import mega2
+from ..ops.render import resolve_device
+from ..scene.compiler import compile_scene
+from ..utils.config import RenderConfig
+
 WARP = 32
+STEP = (0, 640, 360, 8, 8)   # the training step: scene, w, h, spp, K
 _LIGHT = 3.0       # MAT_DIFFUSE_LIGHT, attr column 10
 
 
@@ -60,3 +82,38 @@ def lane_shares(counts: torch.Tensor, warp: int = WARP) -> dict:
     return {"mean_path": useful / max(spp * P, 1),
             "nested": useful / max(nested, 1),
             "flat": useful / max(flat, 1)}
+
+
+def trace_shares(tape: torch.Tensor, attr: torch.Tensor, np_rows: int,
+                 spp: int, warp: int = WARP) -> dict:
+    """`lane_shares` of a sample-major trace tape [K, spp * P] (lane
+    ``s*P + p`` is pixel p's sample s)."""
+    counts = path_bounces(tape, attr, np_rows).reshape(spp, -1)
+    return lane_shares(counts, warp)
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--row-stride", type=int, default=1)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    sid, w, h, spp, K = STEP
+    scene, meta = compile_scene(build_scene(sid), w, h, dtype=np.float32)
+    tab = mega2.pack_mega2_tables(scene, meta, dev)
+    fp = mega2.frame_params(scene, RenderConfig(
+        width=w, height=h, samples_per_pixel=1, max_bounces=K))
+    rows = torch.arange(0, h, args.row_stride, device=dev)
+    pix = (rows[:, None] * w + torch.arange(w, device=dev)).reshape(-1)
+    lane_pix, lane_samp = mega2.tape_lanes(pix, spp)
+    tape = mega2.trace_tapes(tab, lane_pix, lane_samp, fp)
+    res = {"scene": sid, "frame": [w, h, spp, K],
+           "rows": int(rows.shape[0]), "lanes": int(lane_pix.shape[0]),
+           "device": str(dev),
+           **trace_shares(tape, tab.attr, tab.np_rows, spp)}
+    print(json.dumps(res))
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,11 @@
 """PyTorch port: ``tools/build_ab``'s code comparison on the CPU, on short
-PTX and SASS listings in the layout nvcc and cuobjdump print."""
+PTX and SASS listings in the layout nvcc and cuobjdump print; its output
+check, and the output hashes of ``tools/kernel_times``."""
 
-from raytracinginoneweekendincuda_torch.tools import build_ab
+import pytest
+import torch
+
+from raytracinginoneweekendincuda_torch.tools import build_ab, kernel_times
 from torch_threads import one_torch_thread  # noqa: F401
 
 ANON = "_ZN48_GLOBAL__N__{h}_15_mega2_render_cu_01e0c44e19"
@@ -34,6 +38,48 @@ def test_kernel_names_and_template_arguments():
         "mega2_trace_kernel", ())
 
 
+@pytest.mark.parametrize("mangled,want", [
+    ("_ZN48_GLOBAL__N__7c573552_16_mega_bounces_cu_2b4e9d1a19"
+     "mega_bounces_kernelEN12_GLOBAL__N_110MegaParamsEPKfPKiiPfPi",
+     ("mega_bounces_kernel", ())),
+    ("_ZN48_GLOBAL__N__7c573552_15_closest_geo_cu_6f1a2c3d18"
+     "closest_geo_kernelEPKfiS1_iS1_ifPfPi", ("closest_geo_kernel", ())),
+    ("_ZN48_GLOBAL__N__bb8f7670_15_closest_geo_cu_6f1a2c3d18"
+     "closest_geo_kernelILb1EEEvPKfiS2_iS2_ifPfPi",
+     ("closest_geo_kernel", ("1",))),
+], ids=["K5", "K6 before", "K6 staged"])
+def test_kernel_names_of_k5_and_k6(mangled, want):
+    """The file name in the anonymous namespace's mangling is not taken
+    for the kernel's name."""
+    assert build_ab._key(mangled) == want
+
+
+def test_same_outputs_flags_a_differing_hash():
+    runs = [{"checkout": 0, "k6_ms": 0.2, "k6_sha256": "a", "k2_sha256": "b"},
+            {"checkout": 1, "k6_ms": 0.1, "k6_sha256": "a", "k2_sha256": "c"},
+            {"checkout": 1, "k6_sha256": "a"},
+            {"checkout": 0, "k6_ms": 0.2, "k6_sha256": "a", "k2_sha256": "b"}]
+    assert build_ab.same_outputs(runs) == {"k6_sha256": True,
+                                          "k2_sha256": False}
+    assert build_ab.same_outputs(runs[:1] + runs[2:]) == {
+        "k6_sha256": True, "k2_sha256": True}
+
+
+def test_digest_is_of_the_outputs_bytes_in_order():
+    """kernel_times' hash: equal tensors give one hash wherever they lie
+    and however they are strided; a flipped bit, or the order of two
+    outputs, changes it."""
+    t = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    p = torch.tensor([-1, 0, 7], dtype=torch.int32)
+    h = kernel_times.digest(t, p)
+    assert h == kernel_times.digest(t.T.contiguous().T, p.clone())
+    assert len(h) == 64
+    assert h != kernel_times.digest(p, t)
+    bits = t.clone()
+    bits.view(torch.int32)[1, 2] ^= 1
+    assert h != kernel_times.digest(bits, p)
+
+
 def test_compare_matches_the_instantiation_without_the_later_option():
     """The old kernel<1> is matched with the new kernel<1,0>, not
     kernel<1,1>; PTX virtual registers, labels and the anonymous
@@ -52,10 +98,9 @@ def test_compare_matches_the_instantiation_without_the_later_option():
     new_sass = (_sass(NEW.format(h="bb8f7670", c=0),
                       [s.replace("R4", "R9") for s in sass])
                 + _sass(NEW.format(h="bb8f7670", c=1), sass[::-1]))
-    base = {"mega2_render": {"ptx": old_ptx, "sass": old_sass},
-            "mega2_trace": {"ptx": "", "sass": ""}}
-    other = {"mega2_render": {"ptx": new_ptx, "sass": new_sass},
-             "mega2_trace": {"ptx": "", "sass": ""}}
+    empty = {k: {"ptx": "", "sass": ""} for k in build_ab.KERNELS}
+    base = {**empty, "mega2_render": {"ptx": old_ptx, "sass": old_sass}}
+    other = {**empty, "mega2_render": {"ptx": new_ptx, "sass": new_sass}}
     got = build_ab.compare(base, other)
     assert got == {"mega2_render_kernel<1>": {
         "matched": "mega2_render_kernel<1,0>",

@@ -227,6 +227,42 @@ def test_k2_matches_plain_on_card(sid, dev):
     assert (got == want).all(0).float().mean() >= 0.999
 
 
+def test_k2_permuted_padded_lanes_match_plain_on_card(dev):
+    """K2's lane queue on a permuted pixel list with padding lanes
+    (pix < 0) and mixed samples (numpy seed 5): every lane's tape equals
+    the plain version's, and padding lanes hold -1 throughout."""
+    tab, fp, _, _ = _trace_case(4, dev)
+    rs = np.random.default_rng(5)
+    n = fp.width * fp.height
+    ids = np.insert(rs.permutation(n), rs.integers(0, n, 97), -1)
+    pix = torch.as_tensor(ids.astype(np.int32), device=dev)
+    samp = torch.as_tensor(rs.integers(0, 4, ids.shape[0]).astype(np.int32),
+                           device=dev)
+    got = mega2.trace_tapes_cuda(tab, pix, samp, fp)
+    want = mega2.trace_tapes_plain(tab, pix, samp, fp)
+    assert mega2.trace_tapes_cuda.shape[2] > 0      # rows in shared memory
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert (got[:, pix < 0] == -1).all()
+
+
+def test_k2_rows_in_global_memory_match_plain_on_card(dev):
+    """The 10,000-sphere world's rows exceed the opt-in: K2 reads them
+    from global memory (culled), and its tapes equal the plain
+    version's."""
+    w, h, spp, K = 16, 8, 2, 8
+    scene, meta = compile_scene(scenes.sphere_field(), w, h,
+                                dtype=np.float32)
+    fp = mega2.frame_params(scene, RenderConfig(
+        width=w, height=h, samples_per_pixel=1, max_bounces=K))
+    pix, samp = mega2.tape_lanes(
+        torch.arange(w * h, dtype=torch.int32, device=dev), spp)
+    tab = mega2.pack_mega2_tables(scene, meta, dev)
+    got = mega2.trace_tapes_cuda(tab, pix, samp, fp)
+    assert mega2.trace_tapes_cuda.shape[2] == 0
+    want = mega2.trace_tapes_plain(tab, pix, samp, fp)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
 REPLAY_CASES = ["scene 0", "scene 2", "scene 3", "scene 4", "scene 8",
                 "marble probe", "media probe"]
 
@@ -359,6 +395,28 @@ def test_k6_matches_plain_on_card(sid, dev):
     torch.cuda.synchronize()
     assert pallas_hit.closest_geo_cuda.launches == before + 1
     assert t.device == dev and p.dtype == torch.int32
+    assert torch.equal(t, tp)
+    assert (p == pp).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("world,staged", [("scene 9", True),
+                                          ("sphere_field", False)])
+def test_k6_shared_and_global_tables_match_plain_on_card(world, staged,
+                                                         dev):
+    """Scene 9's tables (the largest reference tables, 200 KB of staged
+    rows) go to shared memory; ``sphere_field()``'s 10,001 spheres exceed
+    the opt-in and are read from global memory.  Both: ``t`` identical to
+    the plain version on every lane, ``prim`` on at least 99.9%."""
+    W, H = 32, 16
+    desc = scenes.build_scene(9) if staged else scenes.sphere_field()
+    scene, _ = compile_scene(desc, W, H, dtype=np.float32)
+    sph, quad = pallas_hit.pack_geometry(scene, dev)
+    _, (o, d, tm, _) = _camera_rays(scene, dev, W, H, 2)
+    rays = torch.cat([o, d, tm[:, None], torch.zeros_like(tm)[:, None]],
+                     dim=1).contiguous()
+    t, p = pallas_hit.closest_geo_cuda(rays, sph, quad, 1e-3)
+    assert (pallas_hit.closest_geo_cuda.shape[2] > 0) == staged
+    tp, pp = pallas_hit.closest_geo_plain(rays, sph, quad, 1e-3)
     assert torch.equal(t, tp)
     assert (p == pp).float().mean() >= 0.999
 

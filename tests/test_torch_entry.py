@@ -138,12 +138,12 @@ def test_entry_points_have_no_cpu_default(entry):
 
 
 @pytest.mark.parametrize("tool", ("probe_pair", "probe_intmul",
-                                  "probe_mosaic", "kernel_times",
-                                  "build_ab"))
+                                  "probe_mosaic", "lane_share",
+                                  "kernel_times", "build_ab"))
 def test_probe_tools_without_card_raise(tool):
-    """The probe tools run on the card unless given ``--device cpu``
-    (tests/test_torch_probes.py runs them so); ``kernel_times`` and
-    ``build_ab`` run only on the card."""
+    """The probe tools and ``lane_share`` run on the card unless given
+    ``--device cpu`` (tests/test_torch_probes.py runs the probes so);
+    ``kernel_times`` and ``build_ab`` run only on the card."""
     import importlib
 
     _no_card()

@@ -9,7 +9,7 @@ from raytracinginoneweekendincuda_torch.models.scenes import sphere_field
 from raytracinginoneweekendincuda_torch.ops import mega2
 from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
 from raytracinginoneweekendincuda_torch.tools.lane_share import (
-    lane_shares, path_bounces,
+    lane_shares, path_bounces, trace_shares,
 )
 from raytracinginoneweekendincuda_torch.utils.config import RenderConfig
 from torch_threads import one_torch_thread  # noqa: F401
@@ -50,6 +50,29 @@ def test_path_bounces_on_hand_made_tape():
 def test_lane_shares(counts, warp, want):
     got = lane_shares(torch.tensor(counts), warp)
     assert got == pytest.approx(want, rel=1e-12)
+
+
+def test_trace_shares_at_the_train_steps_shape():
+    """K2's tape at the training step's shape (640x360, spp 8, K 8;
+    1.84 M sample-major lanes) made from seeded path lengths (numpy seed
+    7): trace_shares reads lane ``s*P + p`` as pixel p's sample s, so its
+    ``nested`` share is the useful share of a thread a lane whose warp
+    holds 32 adjacent pixels of one sample and runs its longest path."""
+    W, H, spp, K = 640, 360, 8, 8
+    P = W * H
+    counts = np.random.default_rng(7).integers(1, K + 1, (spp, P))
+    # a path of c < K bounces: c - 1 hits on surface row 0, then a miss;
+    # of K bounces: K hits
+    b = np.arange(K)[:, None]
+    lanes = counts.reshape(-1)[None]
+    tape = np.where((b < lanes - 1) | (lanes == K), 0, -1).astype(np.int32)
+    got = trace_shares(torch.from_numpy(tape), torch.zeros((1, 40)), 1, spp)
+    warps = counts.reshape(spp, P // 32, 32)
+    assert got["mean_path"] == pytest.approx(counts.mean(), rel=1e-12)
+    assert got["nested"] == pytest.approx(
+        counts.sum() / (32 * warps.max(-1).sum()), rel=1e-12)
+    assert got["flat"] == pytest.approx(
+        counts.sum() / (32 * warps.sum(0).max(-1).sum()), rel=1e-12)
 
 
 def test_sphere_field_is_seeded_and_renders():
