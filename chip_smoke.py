@@ -48,7 +48,10 @@ version.  Phases:
 8. K3 / K4 against ``replay_plain`` and its autograd: all ten scenes at
    64x32, spp 1, K 8 (forward: K1's bounds; backward: d_rep rel-L2 <=
    1e-3, at most 1% of lanes whose d_rays or d_bg differ by more than
-   1e-3 of the largest);
+   1e-3 of the largest), and K4 on ``sphere_field(FIELD_SMALL)`` at phase
+   7's 32x16 (sample 0, K 8), a table above the opt-in; with K4's ptxas
+   report and each launch's shape and d_rep memory (shared where it fits
+   beside the states, else global: scene 9 and the large world);
 9. the training step at full width: scene 0 at 640x360, spp 8, K 8
    (1.84 M lanes), Adam lr 1e-2, one warm-up and three timed steps, split
    into phases with CUDA events, with the K2 / K3 / K4 launch counts of
@@ -56,8 +59,9 @@ version.  Phases:
    time over the unprofiled step); the lane shares of K2's tapes
    (`tools/lane_share.trace_shares`) and K2 against its plain version on
    all lanes, K3 and K4 against ``replay_plain`` and its autograd on all of
-   sample 0's lanes (the shape the step launches them at), K4 also on
-   every 97th pixel; each kernel timed alone against its plain version;
+   sample 0's lanes (the shape the step launches them at; K4's launch
+   shape, d_rep in shared memory), K4 also on every 97th pixel; each
+   kernel timed alone against its plain version;
    then the scene-4 loss-decrease check (12x8, 4 steps);
 10. K6 against ``closest_geo_plain`` on all ten scenes (tables in shared
     memory) and on ``sphere_field()`` (10,001 spheres: tables above the
@@ -151,7 +155,7 @@ from raytracinginoneweekendincuda_torch.tools import (
 )
 from raytracinginoneweekendincuda_torch.tools.common import best_ms
 from raytracinginoneweekendincuda_torch.tools.kernel_times import (
-    first_pool, train_setup,
+    first_pool, replay_inputs, step_phase_ms, train_setup,
 )
 from raytracinginoneweekendincuda_torch.tools.lane_share import (
     lane_shares, path_bounces, trace_shares,
@@ -163,7 +167,7 @@ MAX_FRAC_ABOVE = 0.01     # at most 1% of pixels may differ
 MAX_MEAN = 2e-3           # mean absolute difference over all channels
 STRIDE = 97               # pixel-id stride of the main-path check subset
 TAPE_CHUNK = 1440 * 72    # pixels a K2 trace when counting a frame's paths
-NO_SPILLS = ("mega2_render", "mega2_trace", "mega_bounces",
+NO_SPILLS = ("mega2_render", "mega2_trace", "replay_bwd", "mega_bounces",
              "closest_geo")                     # sized to hold no spills
 MAIN = (1440, 720, 10)    # the main path's frame: width, height, spp
 SMALL = (64, 32, 4)       # every scene, K1 against the plain version
@@ -651,21 +655,39 @@ def grad_check(tt, rays, tape, pc, bg, g, t_min, what: str) -> dict:
     return st
 
 
-def replay_inputs(scene, meta, tab, fp, pix, samp: int, tape, dev):
-    tt = rp.replay_table(scene, meta, tab,
-                         kernel_space=mega2.mega2_kernel_id_space(tab, meta))
-    o, d, tm, pc = generate_rays(fp.cam, pix, samp, fp.width, fp.height,
-                                 fp.seed)
-    rays = torch.cat([o, d, tm[:, None]], dim=1).contiguous()
-    bg = torch.tensor(fp.background, dtype=torch.float32, device=dev)
-    rs = np.random.default_rng(1984)
-    g = torch.as_tensor(rs.uniform(0.5, 1.5, (pix.shape[0], 3))
-                        .astype(np.float32), device=dev)
-    return tt, rays, tape, pc, bg, g
+def ptxas_kernels(report: str) -> list:
+    """(entry function, registers, stack bytes, spill-store bytes) of each
+    kernel of a ``ptxas -v`` report."""
+    return [(m.group(1), int(m.group(4)), int(m.group(2)), int(m.group(3)))
+            for m in re.finditer(
+                r"Compiling entry function '(\S+)'.*?(\d+) bytes stack "
+                r"frame, (\d+) bytes spill stores.*?Used (\d+) registers",
+                report, re.S)]
 
 
-def phase_replay(dev) -> None:
+def k4_ptxas(report: str) -> str:
+    """K4's instantiations in its ptxas report: registers, stack, spills."""
+    return "; ".join(
+        f"{'shared' if 'ILb1E' in name else 'global'} d_rep {regs} "
+        f"registers, {stack}-byte stack, {spill} bytes spilled"
+        for name, regs, stack, spill in ptxas_kernels(report)
+        if "replay_bwd_kernel" in name)
+
+
+def k4_launch(what: str, rep_shared: bool) -> None:
+    """Prints K4's last launch; raises if it summed d_rep in the other
+    memory than ``rep_shared`` says."""
+    got = rc.replay_bwd_cuda.rep_shared
+    print(f"  {what}: K4 launch (blocks, threads, shared bytes) "
+          f"{rc.replay_bwd_cuda.shape}, d_rep summed in "
+          f"{'shared' if got else 'global'} memory", flush=True)
+    if got != rep_shared:
+        raise AssertionError(f"{what}: K4 summed d_rep in the wrong memory")
+
+
+def phase_replay(dev, k4_report: str) -> None:
     w, h, _, K = REPLAY
+    print(f"  K4 ptxas: {k4_ptxas(k4_report)}", flush=True)
     pix = torch.arange(w * h, dtype=torch.int32, device=dev)
     for sid in range(10):
         scene, meta, cfg, _ = compile_cfg(sid, w, h, 1, K)
@@ -680,9 +702,24 @@ def phase_replay(dev) -> None:
         compare(out.cpu().numpy(), plain.detach().cpu().numpy(),
                 f"scene {sid} K3")
         grad_check(tt, rays, tape, pc, bg, g, fp.t_min, f"scene {sid} K4")
+        k4_launch(f"scene {sid} ({tt.NP} table rows)", rc.bwd_rep_in_shared(
+            tt.NP, K, rc.bwd_smem_optin()))
+    # a table above the opt-in: sphere_field(FIELD_SMALL), sample 0 of
+    # phase 7's frame, its tape traced by K2 (the chunk cull engaged)
+    w, h, _, K = TRACE_FIELD
+    scene, meta, tab = field_tables(FIELD_SMALL, w, h, dev)
+    fp = mega2.frame_params(scene, RenderConfig(
+        width=w, height=h, samples_per_pixel=1, max_bounces=K))
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    tape = mega2.trace_tapes_cuda(tab, pix, torch.zeros_like(pix), fp)
+    tt, rays, tape, pc, bg, g = replay_inputs(scene, meta, tab, fp, pix, 0,
+                                              tape, dev)
+    grad_check(tt, rays, tape, pc, bg, g, fp.t_min,
+               f"sphere_field({FIELD_SMALL}) at {w}x{h}, K {K}, K4")
+    k4_launch(f"sphere_field({FIELD_SMALL}) ({tt.NP} table rows)", False)
 
 
-def phase_train(dev, card: str) -> dict:
+def phase_train(dev, card: str, k4_report: str) -> dict:
     """The training step at full width; returns the kernels' numbers."""
     W, H, spp, K = TRAIN
     P, L = W * H, W * H * spp
@@ -697,23 +734,15 @@ def phase_train(dev, card: str) -> dict:
         c.launches = 0
     state, loss = step(state, pix, target)               # warm-up
     torch.cuda.synchronize()
-    losses, walls, split = [float(loss)], [], {}
+    losses, walls, split, box = [float(loss)], [], {}, [state]
     for _ in range(3):
-        ev = [("start", torch.cuda.Event(enable_timing=True))]
-        ev[0][1].record()
-
-        def mark(name, ev=ev):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            ev.append((name, e))
-
         t0 = time.perf_counter()
-        state, loss = step(state, pix, target, mark=mark)
-        torch.cuda.synchronize()
+        phases, loss = step_phase_ms(step, box, pix, target)
         walls.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
-        for (_, a), (name, b) in zip(ev, ev[1:]):
-            split.setdefault(name, []).append(a.elapsed_time(b))
+        for name, ms in phases.items():
+            split.setdefault(name, []).append(ms)
+    state = box[0]
     launches = [c.launches for c in counters]
     print(f"  {W}x{H}, spp {spp}, K {K} ({P * spp} lanes): ms per step "
           f"{np.mean(walls):.2f} (best {min(walls):.2f}) on {card}",
@@ -791,6 +820,8 @@ def phase_train(dev, card: str) -> dict:
     # K4 on the shape the step launches it: all of sample 0's lanes
     k4_st = grad_check(tt, rays, tape0, pc, bg, g, fp.t_min,
                        f"K4 sample 0, all {P} pixels")
+    k4_launch(f"K4 sample 0 ({tt.NP} table rows)", True)
+    print(f"  K4 ptxas: {k4_ptxas(k4_report)}", flush=True)
     k4_plain_ms = k4_st["plain_ms"]
     dev_ms = {
         "mega2_trace": device_ms(lambda: mega2.trace_tapes_cuda(
@@ -1734,12 +1765,12 @@ def main() -> int:
     w, h, spp, K = REPLAY
     print(f"[8] K3 / K4 vs replay_plain and its autograd, all scenes at "
           f"{w}x{h}, spp {spp}, K {K}", flush=True)
-    phase_replay(dev)
+    phase_replay(dev, builds["replay_bwd"]["ptxas"])
 
     w, h, spp, K = TRAIN
     print(f"[9] main path: parallel/train.make_train_step_mega2, scene 0 at "
           f"{w}x{h}, spp {spp}, K {K}, Adam lr 1e-2", flush=True)
-    recs = phase_train(dev, card)
+    recs = phase_train(dev, card, builds["replay_bwd"]["ptxas"])
 
     w, h, spp, iters = POOL
     print(f"[10] K6 vs closest_geo_plain, all scenes: the first {iters} "

@@ -15,23 +15,47 @@
 //                       a row that fits in 48 KB is staged in shared memory,
 //                       a wider one (the 256 KB and 2 MB tables; a block has
 //                       at most 227 KB) is read from global memory
-//   gather_sublane      take_along_axis on axis 0, the [256, 128] table
-//                       (128 KB) staged in dynamic shared memory
+//   gather_sublane      take_along_axis on axis 0 from the [256, 128] table:
+//                       one block a row of idx, each thread one __ldg of
+//                       its index and one of its element
 //   dot_chunks          sum over chunks of [M, K] x [K, N] (the dynamic
 //                       sublane slice + dot, and the f32 matmul): one thread
 //                       an output, K terms left to right on CUDA cores, B in
 //                       shared memory; no tensor cores, no library call
-//   onehot_dot          a^T . (w == hot): the one-hot winner read, a in
-//                       shared memory, w read from global memory
+//   onehot_dot          a^T . (w == hot): the one-hot winner read, a block
+//                       a 4 x 32 tile of the output, the tile's columns of
+//                       w and a staged in shared memory by cp.async
 //   gather_timing       REP gathers from a [24, 256] table (the Perlin access
 //                       shape) in shared memory, summed
 //   trig                acos(clip(x, -1, 1)) + atan2(x, 1 - x)
 //
 // The gathers clamp an index outside the table to its edge (jnp's
 // mode="clip"; the probes' indices are in range), so a launch needs no
-// host-side check.  All are tiny; launch latency bounds them at the
-// probes' shapes.  Each entry point returns the launch's
+// host-side check.  Each entry point returns the launch's
 // cudaGetLastError().
+//
+// What bounds them: all are tiny, so at the probes' shapes a launch's
+// fixed cost and, inside it, the
+// longest chain of dependent steps of one block bound them; none comes
+// near the card's memory or FP32 rate.  Hence the two that lost to their
+// PyTorch call (PERF.md) were reshaped to shorten their one-block chains:
+//   gather_sublane      first staged the whole 128 KB table in the shared
+//                       memory of one block of 1024 threads (32 serial
+//                       loads a thread, and the opt-in attribute set on
+//                       every launch) to read 1,024 elements of it; it now
+//                       reads only those, over a block per row of idx
+//                       (8 blocks), one dependent load pair a thread.
+//   onehot_dot          ran 4 blocks of 1024 threads on 132 SMs, each
+//                       first staging all of a (32 KB), then a 256-step
+//                       chain a thread with a global load of w at each
+//                       step, whose latency the chain waited out.  It now
+//                       runs 32 blocks of 128 threads, each staging only
+//                       its tile's columns of w and a (36 KB) by cp.async,
+//                       every copy in flight at once, and runs the chain
+//                       from shared memory.  The sum stays left to right,
+//                       each term a[n, c] * (0 or 1) as in the plain
+//                       version, so a cold term's +-0 and a NaN or inf in
+//                       a still reach the result as there.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 //        -std=c++17 -shared -Xcompiler -fPIC (see utils/cuda_build.py).
@@ -42,6 +66,9 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kStaticSmem = 48 * 1024;  // shared memory without opt-in
+// onehot_dot's tile: rows c and columns j of out a block, rows n of w and
+// a staged at a time (36 KB)
+constexpr int kOhC = 4, kOhJ = 32, kOhN = 256;
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
@@ -91,19 +118,16 @@ __global__ void gather_rows_kernel(const unsigned* __restrict__ t, int width,
   }
 }
 
-// out[r, j] = t[clamp(idx[r, j], 0, n_rows - 1), j]; t [n_rows, cols]
-// staged in shared memory
+// out[r, j] = t[clamp(idx[r, j], 0, n_rows - 1), j]; t [n_rows, cols] read
+// from global memory, one block a row of idx
 __global__ void gather_sublane_kernel(const float* __restrict__ t,
                                       int n_rows, int cols,
-                                      const int* __restrict__ idx, int rows,
+                                      const int* __restrict__ idx,
                                       float* __restrict__ out) {
-  extern __shared__ float smem_tab[];
-  for (int k = threadIdx.x; k < n_rows * cols; k += blockDim.x) {
-    smem_tab[k] = t[k];
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < rows * cols; k += blockDim.x) {
-    out[k] = smem_tab[min(max(idx[k], 0), n_rows - 1) * cols + k % cols];
+  const size_t row = (size_t)blockIdx.x * cols;
+  for (int j = threadIdx.x; j < cols; j += blockDim.x) {
+    const int i = min(max(__ldg(idx + row + j), 0), n_rows - 1);
+    out[row + j] = __ldg(t + (size_t)i * cols + j);
   }
 }
 
@@ -128,22 +152,61 @@ __global__ void dot_chunks_kernel(const float* __restrict__ a,
   out[o] = acc;
 }
 
-// out[c, j] = sum_n a[n, c] * (w[n, j] == hot), n left to right
-__global__ void onehot_dot_kernel(const int* __restrict__ w,
-                                  const float* __restrict__ a, int np,
-                                  int nc, int r, int hot,
-                                  float* __restrict__ out) {
-  extern __shared__ float smem_a[];
-  for (int k = threadIdx.x; k < np * nc; k += blockDim.x) smem_a[k] = a[k];
-  __syncthreads();
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= nc * r) return;
-  const int c = o / r, j = o % r;
-  float s = smem_a[c] * (w[j] == hot ? 1.0f : 0.0f);
-  for (int n = 1; n < np; ++n) {
-    s = s + smem_a[n * nc + c] * (w[n * r + j] == hot ? 1.0f : 0.0f);
+// Copies 4 bytes from global to shared memory without a register
+// (cp.async); cp_async_wait makes the thread's copies visible to it.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// out[c, j] = sum_n a[n, c] * (w[n, j] == hot), n left to right.  A block
+// computes a kOhC x kOhJ tile of out: one warp a row c (a[n, c] a
+// broadcast), its lanes the columns j.  It stages kOhN rows of w's and a's
+// columns at a time in shared memory by cp.async, so every load of the
+// chunk is in flight at once, then runs the chain of adds from there.
+__global__ void __launch_bounds__(kOhC * kOhJ)
+onehot_dot_kernel(const int* __restrict__ w, const float* __restrict__ a,
+                  int np, int nc, int r, int hot, float* __restrict__ out) {
+  __shared__ int sw[kOhN * kOhJ];
+  __shared__ float sa[kOhN * kOhC];
+  const int c0 = blockIdx.x * kOhC, j0 = blockIdx.y * kOhJ;
+  const int ci = threadIdx.x / kOhJ, ji = threadIdx.x % kOhJ;
+  const bool live = c0 + ci < nc && j0 + ji < r;
+  float s = 0.0f;
+  for (int n0 = 0; n0 < np; n0 += kOhN) {
+    const int rows = min(kOhN, np - n0);
+    for (int k = threadIdx.x; k < rows * kOhJ; k += blockDim.x) {
+      const int jj = k % kOhJ;
+      if (j0 + jj < r)
+        cp_async4(sw + k, w + (size_t)(n0 + k / kOhJ) * r + j0 + jj);
+    }
+    for (int k = threadIdx.x; k < rows * kOhC; k += blockDim.x) {
+      const int cc = k % kOhC;
+      if (c0 + cc < nc)
+        cp_async4(sa + k, a + (size_t)(n0 + k / kOhC) * nc + c0 + cc);
+    }
+    cp_async_wait();
+    __syncthreads();
+    if (live) {
+      int n = 0;
+      if (n0 == 0) {
+        s = sa[ci] * (sw[ji] == hot ? 1.0f : 0.0f);
+        n = 1;
+      }
+#pragma unroll 8
+      for (; n < rows; ++n) {
+        s = s + sa[n * kOhC + ci] * (sw[n * kOhJ + ji] == hot ? 1.0f : 0.0f);
+      }
+    }
+    __syncthreads();
   }
-  out[o] = s;
+  if (live) out[(size_t)(c0 + ci) * r + j0 + ji] = s;
 }
 
 // out[r, j] = 0 + sum_k t[r, (idx[r, j] + k) & mask], k = 0 .. rep-1
@@ -223,16 +286,16 @@ extern "C" int gather_rows_launch(const void* t, int rows, int width,
                 (const int*)idx, m, (unsigned*)out);
 }
 
-// t [n_rows, cols] f32 (at most 227 KB), idx [rows, cols] i32 ->
-// out [rows, cols]
+// t [n_rows, cols] f32, idx [rows, cols] i32 -> out [rows, cols]
 extern "C" int gather_sublane_launch(const void* t, int n_rows, int cols,
                                      const void* idx, int rows, void* out,
                                      void* stream) {
   if (n_rows < 1 || cols < 1 || rows < 1) return (int)cudaErrorInvalidValue;
-  return launch(gather_sublane_kernel, 1, kMaxThreads,
-                (size_t)n_rows * cols * sizeof(float), (cudaStream_t)stream,
-                (const float*)t, n_rows, cols, (const int*)idx, rows,
-                (float*)out);
+  const int threads = cols < kMaxThreads ? ceil_div(cols, 32) * 32
+                                         : kMaxThreads;
+  return launch(gather_sublane_kernel, rows, threads, 0,
+                (cudaStream_t)stream, (const float*)t, n_rows, cols,
+                (const int*)idx, (float*)out);
 }
 
 // a [chunks * M, K], b [K, N] f32 -> out [M, N]
@@ -253,10 +316,9 @@ extern "C" int onehot_dot_launch(const void* w, const void* a, int np,
                                  int nc, int r, int hot, void* out,
                                  void* stream) {
   if (np < 1 || nc < 1 || r < 1) return (int)cudaErrorInvalidValue;
-  return launch(onehot_dot_kernel, ceil_div(nc * r, kMaxThreads),
-                kMaxThreads, (size_t)np * nc * sizeof(float),
-                (cudaStream_t)stream, (const int*)w, (const float*)a, np, nc,
-                r, hot, (float*)out);
+  return launch(onehot_dot_kernel, dim3(ceil_div(nc, kOhC), ceil_div(r, kOhJ)),
+                kOhC * kOhJ, 0, (cudaStream_t)stream, (const int*)w,
+                (const float*)a, np, nc, r, hot, (float*)out);
 }
 
 // t [rows, width] f32, idx [rows, m] i32 -> out [rows, m]; indices are

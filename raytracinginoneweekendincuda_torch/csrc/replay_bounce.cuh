@@ -592,10 +592,14 @@ __device__ __forceinline__ void unit_dir_bwd(const Rec& r, const State& s,
 __device__ __forceinline__ void texture_bwd(const float* row, const Rec& r,
                                             const float d_tex[3], V3& d_p,
                                             Grad& g) {
-  if (r.tex_src == 0 || r.tex_src == 1) {
-    const int base = r.tex_src == 0 ? 17 : 20;
+  // the columns by constant index, each side of the branch: a run-time
+  // index would put all of `g` in local memory
+  if (r.tex_src == 0) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) g.row[base + c] = g.row[base + c] + d_tex[c];
+    for (int c = 0; c < 3; ++c) g.row[17 + c] = g.row[17 + c] + d_tex[c];
+  } else if (r.tex_src == 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) g.row[20 + c] = g.row[20 + c] + d_tex[c];
   } else if (r.tex_src == 2) {
     // marble = 0.5 * (1 + sin(arg)), arg = s * pz + 10 * turb
     float d_m = d_tex[0] + d_tex[1] + d_tex[2];

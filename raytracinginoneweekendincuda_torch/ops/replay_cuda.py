@@ -61,14 +61,42 @@ def load_fwd_kernel():
                  [ctypes.POINTER(_Params), _P, _P, _P, _P, _P])
 
 
+# K4's largest block (``kBlock`` in csrc/replay_bwd.cu; the loader checks
+# the two agree) and the words of a bounce state (o, d, thr).
+BWD_BLOCK = 384
+STATE_WORDS = 9
+
+
+def bwd_rep_in_shared(np_rows: int, K: int, smem_optin: int,
+                      threads: int = BWD_BLOCK) -> bool:
+    """Whether K4 sums d_rep in shared memory: its bounce states (K x 9
+    words a thread) and the table's cotangent (np_rows x 27 words) fit a
+    block's opt-in shared memory.  Otherwise the other instantiation adds
+    into the global d_rep.  Scene 0 (512 rows) at K 8 fits the H100's
+    232,448 bytes; scene 9 (3,522 rows) does not."""
+    need = 4 * (STATE_WORDS * K * threads + REP_COLS * np_rows)
+    return need <= smem_optin
+
+
 def load_bwd_kernel():
     """Build (at first use) and load K4; returns (CDLL, build record)."""
     lib, record = _load("replay_bwd", "replay_bwd_launch",
                         [ctypes.POINTER(_Params), _P, _P, _P, _P, _P, _P,
-                         _P, _P])
-    lib.replay_bwd_kmax.argtypes = []
-    lib.replay_bwd_kmax.restype = ctypes.c_int
+                         _P, _P, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                         _P])
+    for name in ("replay_bwd_kmax", "replay_bwd_block",
+                 "replay_bwd_smem_optin"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    if lib.replay_bwd_block() != BWD_BLOCK:
+        raise RuntimeError("K4's block and BWD_BLOCK differ")
     return lib, record
+
+
+def bwd_smem_optin() -> int:
+    """The opt-in shared memory a block may use on the current CUDA
+    device, bytes (K4's query, for `bwd_rep_in_shared`)."""
+    return load_bwd_kernel()[0].replay_bwd_smem_optin()
 
 
 def _params(tt: ReplayTables, rep, bg, n: int, K: int, sample: int,
@@ -136,8 +164,12 @@ replay_fwd_cuda.launches = 0
 def replay_bwd_cuda(tt: ReplayTables, rep, rays, tape, pix_ctr, sample: int,
                     bg, g, *, t_min: float):
     """K4: (d_rep [NP, 27], d_rays [N, 7], d_bg [N, 3]) for the radiance
-    cotangent ``g`` [N, 3].  d_rep is summed over lanes with atomics, so
-    its last bits vary from run to run."""
+    cotangent ``g`` [N, 3].  d_rep is summed over lanes with atomics (in
+    shared memory first where `bwd_rep_in_shared` says it fits), so its
+    last bits vary from run to run; d_rays and d_bg do not.
+    ``replay_bwd_cuda.shape`` holds the last launch's (blocks, threads a
+    block, shared bytes) and ``replay_bwd_cuda.rep_shared`` whether it
+    summed d_rep in shared memory."""
     rep, rays, tape, pix_ctr, bg, g = (x.contiguous() for x in
                                        (rep, rays, tape, pix_ctr, bg, g))
     _check(tt, rep, rays, tape, pix_ctr, bg)
@@ -153,21 +185,29 @@ def replay_bwd_cuda(tt: ReplayTables, rep, rays, tape, pix_ctr, sample: int,
     d_rep = torch.zeros((tt.NP, REP_COLS), dtype=torch.float32, device=dev)
     d_rays = torch.empty((n, 7), dtype=torch.float32, device=dev)
     d_bg = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    queue = torch.empty(1, dtype=torch.int32, device=dev)
     prm = _params(tt, rep, bg, n, K, sample, t_min)
+    shape = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
+        rep_shared = bwd_rep_in_shared(tt.NP, K, bwd_smem_optin())
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.replay_bwd_launch(
             ctypes.byref(prm), rays.data_ptr(), tape.data_ptr(),
             pix_ctr.data_ptr(), g.data_ptr(), d_rays.data_ptr(),
-            d_rep.data_ptr(), d_bg.data_ptr(), stream)
+            d_rep.data_ptr(), d_bg.data_ptr(), queue.data_ptr(),
+            int(rep_shared), shape, stream)
     if err != 0:
         raise RuntimeError(f"replay backward kernel launch failed: CUDA "
                            f"error {err}")
     replay_bwd_cuda.launches += 1
+    replay_bwd_cuda.shape = tuple(shape)
+    replay_bwd_cuda.rep_shared = rep_shared
     return d_rep, d_rays, d_bg
 
 
 replay_bwd_cuda.launches = 0
+replay_bwd_cuda.shape = None
+replay_bwd_cuda.rep_shared = None
 
 
 class ReplayFunction(torch.autograd.Function):

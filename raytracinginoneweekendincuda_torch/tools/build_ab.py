@@ -1,5 +1,5 @@
-"""K1, K2, K5 and K6 of several checkouts of the package, built alike,
-compared as code and by their outputs, and timed in one call:
+"""K1-K6 and P3 of several checkouts of the package, built alike, compared
+as code and by their outputs, and timed in one call:
 
     python -m raytracinginoneweekendincuda_torch.tools.build_ab \
         CHECKOUT [CHECKOUT ...] [--order 0,1,1,0]
@@ -9,10 +9,11 @@ a commit, unpacked).  For each entry of ``--order`` (default: the first
 checkout, the others forward, the others back, the first again -- P C C P
 for two), the checkout's package is copied into ``build/ab/work/``, the
 same directory for every run; its ``csrc/mega2_render.cu``,
-``mega2_trace.cu``, ``mega_bounces.cu`` and ``closest_geo.cu`` are
+``mega2_trace.cu``, ``replay_fwd.cu``, ``replay_bwd.cu``,
+``mega_bounces.cu``, ``closest_geo.cu`` and ``probe_mosaic.cu`` are
 compiled by the checkout's own nvcc command (``utils/cuda_build``), once
-more to PTX, and put where that package loads its cached builds; then
-``tools/kernel_times.py`` of this package runs on it.
+more to PTX, all at once, and put where that package loads its cached
+builds; then ``tools/kernel_times.py`` of this package runs on it.
 
 Then each kernel of the checkout run first is matched with the kernel of
 each other checkout run that has the same template arguments followed
@@ -38,12 +39,18 @@ import re
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 from ..ops.render import resolve_device
 from ..utils import cuda_build
 
 PKG = "raytracinginoneweekendincuda_torch"
-KERNELS = ("mega2_render", "mega2_trace", "mega_bounces", "closest_geo")
+KERNELS = ("mega2_render", "mega2_trace", "replay_fwd", "replay_bwd",
+           "mega_bounces", "closest_geo", "probe_mosaic")
+# the kernel functions of a source whose names are not <source>_kernel
+FUNCTIONS = {"probe_mosaic": ("while_vector_cond", "gather_lane",
+                              "gather_rows", "gather_sublane", "dot_chunks",
+                              "onehot_dot", "gather_timing", "trig")}
 WORK = os.path.join(os.path.dirname(cuda_build.PKG_DIR), "build", "ab",
                     "work")
 KERNEL_TIMES = os.path.join(cuda_build.PKG_DIR, "tools", "kernel_times.py")
@@ -72,8 +79,8 @@ def build(checkout: str) -> dict:
     os.makedirs(build_dir, exist_ok=True)
     nvcc = cuda_build.find_nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    out = {}
-    for name in KERNELS:
+
+    def one(name: str) -> dict:
         src = os.path.join(WORK, PKG, "csrc", name + ".cu")
         lib = os.path.join(build_dir, f"{name}_{digest}.so")
         ptx = os.path.join(build_dir, name + ".ptx")
@@ -81,14 +88,16 @@ def build(checkout: str) -> dict:
         _run([nvcc, *flags[:flags.index("-shared")], "-ptx", "-o", ptx, src],
              cwd=WORK)
         with open(ptx) as f:
-            out[name] = {"ptx": f.read(),
-                         "sass": _run([cuobjdump, "-sass", lib])}
-    return out
+            return {"ptx": f.read(), "sass": _run([cuobjdump, "-sass", lib])}
+
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        return dict(zip(KERNELS, ex.map(one, KERNELS)))
 
 
 def _key(mangled: str):
     """(kernel name, template arguments as '0' / '1') of a mangled name."""
-    m = re.search(r"((?:%s)_kernel)(I((?:Lb[01]E)+)E)?" % "|".join(KERNELS),
+    names = [f for k in KERNELS for f in FUNCTIONS.get(k, (k,))]
+    m = re.search(r"((?:%s)_kernel)(I((?:Lb[01]E)+)E)?" % "|".join(names),
                   mangled)
     return m.group(1), tuple(re.findall(r"Lb([01])E", m.group(3) or ""))
 

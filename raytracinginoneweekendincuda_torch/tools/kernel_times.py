@@ -1,5 +1,5 @@
-"""Device times of the kernels K1, K2, K5 and K6 at fixed shapes, a hash
-of each one's output, and the times of the train step and the
+"""Device times of the kernels K1-K6 at fixed shapes, a hash of each
+one's output, and the times of the train step and the
 ``wavefront_pallas`` frame, on one card:
 
     python -m raytracinginoneweekendincuda_torch.tools.kernel_times
@@ -10,6 +10,10 @@ of each one's output, and the times of the train step and the
   after a warm-up; 50 bounces;
 - K2 (``trace_tapes_cuda``): scene 0 at the training step's shape,
   640x360, spp 8, K 8 (1.84 M lanes), best of 5;
+- K3 (``replay_fwd_cuda``) and K4 (``replay_bwd_cuda``): the shape the
+  train step launches them at, all 230,400 lanes of sample 0 of scene 0
+  at 640x360, K 8, the tape traced by K2 on the step's start scene
+  (``train_setup``), best of 5 batches of 10 launches;
 - K5 (``mega_bounces_cuda``): scene 0's 8192-ray pool (the first refill of
   a 64x32@4 frame), K 2, best of 5 batches of 20 launches;
 - K6 (``closest_geo_cuda``): the first pool of a ``wavefront_pallas``
@@ -20,16 +24,19 @@ of each one's output, and the times of the train step and the
   (the chunk cull engaged, where the package has it) and, where the
   packer takes the cull's thresholds, with the cull forced off; with the
   frame's u8 hash, which the cull must not change;
-- the two host-bound paths around K2 and K6, by the host clock ended by
-  ``torch.cuda.synchronize()``: the training step
+- the two host-bound paths around K2-K4 and K6, by the host clock ended
+  by ``torch.cuda.synchronize()``: the training step
   (``parallel/train.make_train_step_mega2``) at K2's shape, ms, median of
-  5 steps after a warm-up; and the ``wavefront_pallas`` frame of scene 0
-  at 1440x720@10 (``ops/render.render``), s, median of 3 after a warm-up.
+  5 steps after a warm-up, and its backward phase (K4 x spp and the
+  derivation's backward; CUDA events), median of 5 more; and the
+  ``wavefront_pallas`` frame of scene 0 at 1440x720@10
+  (``ops/render.render``), s, median of 3 after a warm-up.
 
 Times are CUDA events by ``tools/common.best_ms`` (each batch behind a
 sleep kernel, so they are device times).  Each ``*_sha256`` is the SHA-256
 of a kernel's output in the last timed call: K1's radiance sums of each
-frame, K2's tape, K5's (rf, ri) and K6's (t, prim); and the u8 frames of
+frame, K2's tape, K3's radiance, K4's (d_rays, d_bg), K5's (rf, ri) and
+K6's (t, prim); and the u8 frames of
 scene 0 at 1440x720@10 (`ops/render.finalize`) and of the large world.  A
 change that keeps a kernel's arithmetic keeps its hashes
 (``tools/build_ab`` compares them across checkouts).  The script uses
@@ -55,6 +62,8 @@ from raytracinginoneweekendincuda_torch.models.scenes import (
     build_scene, sphere_field,
 )
 from raytracinginoneweekendincuda_torch.ops import mega, mega2, pallas_hit
+from raytracinginoneweekendincuda_torch.ops import replay as rp
+from raytracinginoneweekendincuda_torch.ops import replay_cuda as rc
 from raytracinginoneweekendincuda_torch.ops.raygen import (
     camera_tuple, generate_rays,
 )
@@ -71,7 +80,8 @@ K1_FRAMES = ((0, 1440, 720, 10, 3), (0, 360, 180, 10, 3),
              *((sid, 1440, 720, spp, 1) for sid, spp in (
                  (1, 10), (2, 10), (3, 10), (4, 10), (5, 200), (6, 200),
                  (7, 200), (8, 200), (9, 100))))   # scene, w, h, spp, repeats
-K2_SHAPE = (0, 640, 360, 8, 8)          # scene, w, h, spp, K
+K2_SHAPE = (0, 640, 360, 8, 8)          # scene, w, h, spp, K; K3 / K4
+                                        # run on its sample 0
 K5_POOL = (0, 64, 32, 4)                # scene, w, h, spp
 K6_POOLS = (0, 9)                       # scenes; at K6_FRAME's first pool
 K6_FRAME = (1440, 720, 10)              # w, h, spp
@@ -128,6 +138,57 @@ def k2_times(dev) -> dict:
         torch.arange(w * h, dtype=torch.int32, device=dev), spp)
     ms, tape = timed(lambda: mega2.trace_tapes_cuda(tab, pix, samp, fp), dev)
     return {"k2_train_shape_ms": ms, "k2_train_shape_sha256": digest(tape)}
+
+
+def replay_inputs(scene, meta, tab, fp, pix, samp: int, tape, dev):
+    """K3 / K4's inputs for the lanes (``pix``, sample ``samp``) of a
+    frame and their tape [K, N]: (replay tables, rays [N, 7], tape,
+    pix_ctr, background [3], radiance cotangent g [N, 3]); g is uniform in
+    [0.5, 1.5) from seed 1984."""
+    tt = rp.replay_table(scene, meta, tab,
+                         kernel_space=mega2.mega2_kernel_id_space(tab, meta))
+    o, d, tm, pc = generate_rays(fp.cam, pix, samp, fp.width, fp.height,
+                                 fp.seed)
+    rays = torch.cat([o, d, tm[:, None]], dim=1).contiguous()
+    bg = torch.tensor(fp.background, dtype=torch.float32, device=dev)
+    rs = np.random.default_rng(1984)
+    g = torch.as_tensor(rs.uniform(0.5, 1.5, (pix.shape[0], 3))
+                        .astype(np.float32), device=dev)
+    return tt, rays, tape, pc, bg, g
+
+
+def replay_record(k3_ms: float, out, k4_ms: float, d_rep, d_rays,
+                  d_bg) -> dict:
+    """kernel_times' K3 / K4 keys: the times, a hash of K3's radiance and
+    of K4's (d_rays, d_bg), and the norm of K4's d_rep."""
+    return {"k3_train_shape_ms": k3_ms, "k3_train_shape_sha256": digest(out),
+            "k4_train_shape_ms": k4_ms,
+            "k4_train_shape_sha256": digest(d_rays, d_bg),
+            "k4_train_shape_d_rep_norm": float(d_rep.double().norm())}
+
+
+def replay_times(dev) -> dict:
+    """K3 and K4 on all of sample 0's lanes at K2_SHAPE, the tape traced
+    by K2 on the train step's start scene (the step's first tape of that
+    sample: K2 compiles textures out, so the albedos do not move it)."""
+    _, w, h, _, K = K2_SHAPE
+    _, start, meta, cfg = train_start(K2_SHAPE)
+    tab = mega2.pack_mega2_tables(start, meta, dev)
+    fp = mega2.frame_params(start, cfg)
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    tape = mega2.trace_tapes_cuda(tab, pix, torch.zeros_like(pix), fp)
+    tt, rays, tape, pc, bg, g = replay_inputs(start, meta, tab, fp, pix, 0,
+                                              tape, dev)
+    rep = tt.rep.detach()
+    k3_ms, out = timed(lambda: rc.replay_fwd_cuda(
+        tt, rep, rays, tape, pc, 0, bg, t_min=fp.t_min), dev, launches=10)
+    k4_ms, (d_rep, d_rays, d_bg) = timed(lambda: rc.replay_bwd_cuda(
+        tt, rep, rays, tape, pc, 0, bg, g, t_min=fp.t_min), dev,
+        launches=10)
+    rec = replay_record(k3_ms, out, k4_ms, d_rep, d_rays, d_bg)
+    print(f"  K3 {k3_ms:.4f} ms, K4 {k4_ms:.4f} ms ({w * h} lanes, K {K}); "
+          f"|d_rep| {rec['k4_train_shape_d_rep_norm']:.6e}", flush=True)
+    return rec
 
 
 def k5_times(dev) -> dict:
@@ -222,30 +283,58 @@ def host_median(fn, runs: int) -> float:
     return statistics.median(secs)
 
 
-def train_setup(shape, dev):
-    """The training step at ``shape`` (scene, w, h, spp, K), as
-    ``chip_smoke.py``'s phase 9 and ``path_times`` run it: the target is
-    K1's render of the scene over spp, the start is the scene with its
-    albedos perturbed (x 0.5 + 0.2, clipped), and Adam runs at lr 1e-2.
-    Returns (start scene, meta, cfg, target, train state, step)."""
+def train_start(shape):
+    """(scene, start scene, meta, cfg) of the training step at ``shape``
+    (scene, w, h, spp, K); the start is the scene with its albedos
+    perturbed (x 0.5 + 0.2, clipped)."""
     sid, w, h, spp, K = shape
     scene, meta = compile_scene(build_scene(sid), w, h, dtype=np.float32)
     cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
                        max_bounces=K, engine="mega2")
+    start = scene._replace(tex_c0=np.clip(
+        np.asarray(scene.tex_c0) * 0.5 + 0.2, 0.0, 1.0).astype(np.float32))
+    return scene, start, meta, cfg
+
+
+def train_setup(shape, dev):
+    """The training step at ``shape`` (scene, w, h, spp, K), as
+    ``chip_smoke.py``'s phase 9 and ``path_times`` run it: the target is
+    K1's render of the scene over spp, the start is `train_start`'s, and
+    Adam runs at lr 1e-2.  Returns (start scene, meta, cfg, target, train
+    state, step)."""
+    _, w, h, spp, _ = shape
+    scene, start, meta, cfg = train_start(shape)
     target = mega2.render_radiance_cuda(
         mega2.pack_mega2_tables(scene, meta, dev),
         torch.arange(w * h, dtype=torch.int32, device=dev),
         mega2.frame_params(scene, cfg)) / float(spp)
-    start = scene._replace(tex_c0=np.clip(
-        np.asarray(scene.tex_c0) * 0.5 + 0.2, 0.0, 1.0).astype(np.float32))
     state = train.init_state(start, lambda ps: torch.optim.Adam(ps, lr=1e-2),
                              device=dev)
     return (start, meta, cfg, target, state,
             train.make_train_step_mega2(start, meta, cfg))
 
 
+def step_phase_ms(step, box: list, pix, target) -> dict:
+    """One train step on the state in ``box`` (updated), split into its
+    phases (pack, trace, forward, backward, update) by CUDA events at the
+    step's ``mark`` points: (ms by phase, the step's loss)."""
+    events, names = [torch.cuda.Event(enable_timing=True)], []
+
+    def mark(name):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        names.append(name)
+
+    events[0].record()
+    box[0], loss = step(box[0], pix, target, mark=mark)
+    torch.cuda.synchronize()
+    return {n: a.elapsed_time(b) for n, a, b in zip(names, events,
+                                                    events[1:])}, loss
+
+
 def path_times(dev) -> dict:
-    """The train step at K2's shape (``train_setup``) and the
+    """The train step at K2's shape (``train_setup``): its host-clock time
+    and its backward phase (``step_phase_ms``), medians of 5 steps; and the
     wavefront_pallas frame of scene 0 at K6_FRAME."""
     _, w, h, _, _ = K2_SHAPE
     *_, target, state, step = train_setup(K2_SHAPE, dev)
@@ -255,14 +344,18 @@ def path_times(dev) -> dict:
     def one_step():
         box[0], _ = step(box[0], pix, target)
 
-    out = {"train_step_ms": host_median(one_step, 5) * 1e3}
+    out = {"train_step_ms": host_median(one_step, 5) * 1e3,
+           "train_step_backward_ms": statistics.median(
+               step_phase_ms(step, box, pix, target)[0]["backward"]
+               for _ in range(5))}
     w, h, spp = K6_FRAME
     scene, meta = compile_scene(build_scene(0), w, h, dtype=np.float32)
     cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
                        engine="wavefront_pallas")
     out["wavefront_pallas_frame_s"] = host_median(
         lambda: render(scene, meta, cfg, device=dev), 3)
-    print(f"  train step {out['train_step_ms']:.2f} ms, wavefront_pallas "
+    print(f"  train step {out['train_step_ms']:.2f} ms (backward phase "
+          f"{out['train_step_backward_ms']:.2f} ms), wavefront_pallas "
           f"frame {out['wavefront_pallas_frame_s']:.3f} s", flush=True)
     return out
 
@@ -274,7 +367,8 @@ def main(argv=None) -> dict:
     card = card_line()
     print(f"card: {card}; package {mega2.__file__}", flush=True)
     res = {"card": card, "package": mega2.__file__, **k1_times(dev),
-           **k2_times(dev), **k5_times(dev), **k6_times(dev),
+           **k2_times(dev), **replay_times(dev), **k5_times(dev),
+           **k6_times(dev),
            **field_times(dev), **path_times(dev)}
     print(json.dumps(res), flush=True)
     return res

@@ -140,9 +140,9 @@ def gather_sublane_plain(t, idx):
 
 
 def gather_sublane_cuda(t, idx):
-    """take_along_axis on axis 0: t [n_rows, cols] f32 (at most 227 KB, in
-    shared memory), idx [rows, cols] i32 -> [rows, cols], an index outside
-    the table clamped to its edge."""
+    """take_along_axis on axis 0: t [n_rows, cols] f32 (read from global
+    memory, a block a row of idx), idx [rows, cols] i32 -> [rows, cols], an
+    index outside the table clamped to its edge."""
     dev = check_cuda("gather_sublane", t, idx)
     if t.dtype != torch.float32 or t.dim() != 2 or idx.dtype != torch.int32 \
             or idx.dim() != 2 or idx.shape[1] != t.shape[1]:
@@ -194,7 +194,7 @@ def onehot_dot_plain(w, a, hot: int):
 
 def onehot_dot_cuda(w, a, hot: int):
     """w [NP, R] i32, a [NP, C] f32 -> [C, R] = a^T . (w == hot), summed
-    over NP left to right; a in shared memory."""
+    over NP left to right; a block a row of the output."""
     dev = check_cuda("onehot_dot", w, a)
     if w.dtype != torch.int32 or a.dtype != torch.float32 or w.dim() != 2 \
             or a.dim() != 2 or w.shape[0] != a.shape[0]:

@@ -54,6 +54,32 @@ def test_kernel_names_of_k5_and_k6(mangled, want):
     assert build_ab._key(mangled) == want
 
 
+@pytest.mark.parametrize("mangled,want", [
+    ("_ZN48_GLOBAL__N__7c573552_13_replay_fwd_cu_3a9e1b2c17"
+     "replay_fwd_kernelEN6replay6ParamsEPKfPKiS5_Pf",
+     ("replay_fwd_kernel", ())),
+    ("_ZN48_GLOBAL__N__7c573552_13_replay_bwd_cu_3a9e1b2c17"
+     "replay_bwd_kernelEN6replay6ParamsEPKfPKiS5_S3_PfS6_S6_",
+     ("replay_bwd_kernel", ())),
+    ("_ZN48_GLOBAL__N__bb8f7670_13_replay_bwd_cu_3a9e1b2c17"
+     "replay_bwd_kernelILb1EEEvN6replay6ParamsEPKfPKiS6_S4_PfS7_S7_Pj",
+     ("replay_bwd_kernel", ("1",))),
+    ("_ZN48_GLOBAL__N__7c573552_15_probe_mosaic_cu_5d2e7a1c21"
+     "gather_sublane_kernelEPKfiiPKiPf", ("gather_sublane_kernel", ())),
+    ("_ZN48_GLOBAL__N__7c573552_15_probe_mosaic_cu_5d2e7a1c18"
+     "gather_rows_kernelILb0EEvPKjiPKiiPj", ("gather_rows_kernel", ("0",))),
+    ("_ZN48_GLOBAL__N__7c573552_15_probe_mosaic_cu_5d2e7a1c17"
+     "onehot_dot_kernelEPKiPKfiiiiPf", ("onehot_dot_kernel", ())),
+    ("_ZN48_GLOBAL__N__7c573552_15_probe_mosaic_cu_5d2e7a1c11"
+     "trig_kernelEPKfiPf", ("trig_kernel", ())),
+], ids=["K3", "K4 before", "K4 shared", "P3 gather_sublane",
+        "P3 gather_rows", "P3 onehot_dot", "P3 trig"])
+def test_kernel_names_of_k3_k4_and_p3(mangled, want):
+    """K3, K4 and the eight P3 kernels of probe_mosaic.cu, whose names are
+    not the source's, are found by their own names."""
+    assert build_ab._key(mangled) == want
+
+
 def test_same_outputs_flags_a_differing_hash():
     runs = [{"checkout": 0, "k6_ms": 0.2, "k6_sha256": "a", "k2_sha256": "b"},
             {"checkout": 1, "k6_ms": 0.1, "k6_sha256": "a", "k2_sha256": "c"},

@@ -366,6 +366,70 @@ def test_k4_matches_fd_of_k3(dev):
         np.testing.assert_allclose(g, fd, rtol=5e-2)
 
 
+def _k4_case(desc, dev, w, h, K=8):
+    """K4's inputs for sample 0 of a w x h frame of ``desc``, the tape
+    traced by K2 (tools/kernel_times.replay_inputs)."""
+    from raytracinginoneweekendincuda_torch.tools.kernel_times import (
+        replay_inputs,
+    )
+
+    scene, meta = compile_scene(desc, w, h, dtype=np.float32)
+    tab = mega2.pack_mega2_tables(scene, meta, dev)
+    fp = mega2.frame_params(scene, RenderConfig(
+        width=w, height=h, samples_per_pixel=1, max_bounces=K))
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    tape = mega2.trace_tapes_cuda(tab, pix, torch.zeros_like(pix), fp)
+    return replay_inputs(scene, meta, tab, fp, pix, 0, tape, dev), fp.t_min
+
+
+def test_k4_global_d_rep_matches_autograd_on_card(dev):
+    """sphere_field(3200)'s table (3,264 rows) is above the opt-in, so K4
+    adds d_rep into global memory: d_rep within rel-L2 1e-3 of autograd
+    of replay_plain, at most 1% of lanes whose d_rays or d_bg differ by
+    more than 1e-3 of the largest."""
+    from raytracinginoneweekendincuda_torch.ops import replay as trp
+    from raytracinginoneweekendincuda_torch.ops import replay_cuda as rc
+
+    (tt, rays, tape, pc, bg, g), t_min = _k4_case(scenes.sphere_field(3200),
+                                                  dev, 32, 16)
+    d_rep, d_rays, d_bg = rc.replay_bwd_cuda(tt, tt.rep.detach(), rays,
+                                             tape, pc, 0, bg, g, t_min=t_min)
+    assert rc.replay_bwd_cuda.rep_shared is False
+    rep = tt.rep.detach().clone().requires_grad_(True)
+    rays_p = rays.clone().requires_grad_(True)
+    bg_p = bg.expand(rays.shape[0], 3).clone().requires_grad_(True)
+    out = trp.replay_plain(tt._replace(rep=rep), rays_p, tape, pc, 0, bg_p,
+                           t_min=t_min)
+    grads = torch.autograd.grad(out, (rep, rays_p, bg_p), g,
+                                allow_unused=True)
+    want = [torch.zeros_like(x) if gr is None else gr
+            for gr, x in zip(grads, (rep, rays_p, bg_p))]
+    assert int((tape >= 0).sum()) > 0 and float(want[0].norm()) > 0.0
+    for t in (d_rep, d_rays, d_bg):
+        assert torch.isfinite(t).all()
+    assert float((d_rep - want[0]).norm()) <= 1e-3 * float(want[0].norm())
+    for got, ref in ((d_rays, want[1]), (d_bg, want[2])):
+        tol = 1e-3 * float(ref.abs().max())
+        assert ((got - ref).abs().max(1).values > tol).float().mean() <= 0.01
+
+
+def test_k4_two_launches_agree_on_card(dev):
+    """Scene 0 (d_rep in shared memory): d_rays and d_bg are per lane and
+    bit-equal across launches; d_rep's atomic sum changes order from run
+    to run, within rel 1e-6."""
+    from raytracinginoneweekendincuda_torch.ops import replay_cuda as rc
+
+    (tt, rays, tape, pc, bg, g), t_min = _k4_case(scenes.build_scene(0),
+                                                  dev, 64, 32)
+    runs = [rc.replay_bwd_cuda(tt, tt.rep.detach(), rays, tape, pc, 0, bg, g,
+                               t_min=t_min) for _ in range(2)]
+    assert rc.replay_bwd_cuda.rep_shared is True
+    (rep0, rays0, bg0), (rep1, rays1, bg1) = runs
+    assert torch.equal(rays0, rays1) and torch.equal(bg0, bg1)
+    assert float(rep0.norm()) > 0.0
+    assert float((rep0 - rep1).norm()) <= 1e-6 * float(rep0.norm())
+
+
 # ---- the XLA engine family: K6 (closest geometry hit), K5 (ray pool)
 
 def _camera_rays(scene, dev, W, H, spp):
