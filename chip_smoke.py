@@ -49,19 +49,22 @@ version.  Phases:
    64x32, spp 1, K 8 (forward: K1's bounds; backward: d_rep rel-L2 <=
    1e-3, at most 1% of lanes whose d_rays or d_bg differ by more than
    1e-3 of the largest), and K4 on ``sphere_field(FIELD_SMALL)`` at phase
-   7's 32x16 (sample 0, K 8), a table above the opt-in; with K4's ptxas
-   report and each launch's shape and d_rep memory (shared where it fits
-   beside the states, else global: scene 9 and the large world);
+   7's 32x16 (sample 0, K 8), a table above the opt-in; with K3's and
+   K4's ptxas reports, K3's launch shapes, and each K4 launch's shape and
+   d_rep memory (shared where it fits beside the states, else global:
+   scene 9 and the large world);
 9. the training step at full width: scene 0 at 640x360, spp 8, K 8
    (1.84 M lanes), Adam lr 1e-2, one warm-up and three timed steps, split
-   into phases with CUDA events, with the K2 / K3 / K4 launch counts of
-   that run; the device's busy share of a step (torch.profiler's kernel
-   time over the unprofiled step); the lane shares of K2's tapes
+   into phases with CUDA events (the forward into the replay table,
+   camera rays x spp, K3 x spp and the loss), with the K2 / K3 / K4 launch
+   counts of that run; the device's busy share of a step (torch.profiler's
+   kernel time over the unprofiled step); the lane shares of K2's tapes
    (`tools/lane_share.trace_shares`) and K2 against its plain version on
    all lanes, K3 and K4 against ``replay_plain`` and its autograd on all of
-   sample 0's lanes (the shape the step launches them at; K4's launch
-   shape, d_rep in shared memory), K4 also on every 97th pixel; each
-   kernel timed alone against its plain version;
+   sample 0's lanes (the shape the step launches them at; K3's launch
+   shape and ptxas report, K4's launch shape, d_rep in shared memory), K4
+   also on every 97th pixel; each kernel timed alone against its plain
+   version;
    then the scene-4 loss-decrease check (12x8, 4 steps);
 10. K6 against ``closest_geo_plain`` on all ten scenes (tables in shared
     memory) and on ``sphere_field()`` (10,001 spheres: tables above the
@@ -674,6 +677,14 @@ def k4_ptxas(report: str) -> str:
         if "replay_bwd_kernel" in name)
 
 
+def k3_ptxas(report: str) -> str:
+    """K3's kernel in its ptxas report: registers, stack, spills."""
+    return "; ".join(
+        f"{regs} registers, {stack}-byte stack, {spill} bytes spilled"
+        for name, regs, stack, spill in ptxas_kernels(report)
+        if "replay_fwd_kernel" in name)
+
+
 def k4_launch(what: str, rep_shared: bool) -> None:
     """Prints K4's last launch; raises if it summed d_rep in the other
     memory than ``rep_shared`` says."""
@@ -685,8 +696,9 @@ def k4_launch(what: str, rep_shared: bool) -> None:
         raise AssertionError(f"{what}: K4 summed d_rep in the wrong memory")
 
 
-def phase_replay(dev, k4_report: str) -> None:
+def phase_replay(dev, k3_report: str, k4_report: str) -> None:
     w, h, _, K = REPLAY
+    print(f"  K3 ptxas: {k3_ptxas(k3_report)}", flush=True)
     print(f"  K4 ptxas: {k4_ptxas(k4_report)}", flush=True)
     pix = torch.arange(w * h, dtype=torch.int32, device=dev)
     for sid in range(10):
@@ -701,6 +713,8 @@ def phase_replay(dev, k4_report: str) -> None:
         plain = rp.replay_plain(tt, rays, tape, pc, 0, bg, t_min=fp.t_min)
         compare(out.cpu().numpy(), plain.detach().cpu().numpy(),
                 f"scene {sid} K3")
+        print(f"  scene {sid}: K3 launch (blocks, threads, shared bytes) "
+              f"{rc.replay_fwd_cuda.shape}", flush=True)
         grad_check(tt, rays, tape, pc, bg, g, fp.t_min, f"scene {sid} K4")
         k4_launch(f"scene {sid} ({tt.NP} table rows)", rc.bwd_rep_in_shared(
             tt.NP, K, rc.bwd_smem_optin()))
@@ -719,7 +733,7 @@ def phase_replay(dev, k4_report: str) -> None:
     k4_launch(f"sphere_field({FIELD_SMALL}) ({tt.NP} table rows)", False)
 
 
-def phase_train(dev, card: str, k4_report: str) -> dict:
+def phase_train(dev, card: str, k3_report: str, k4_report: str) -> dict:
     """The training step at full width; returns the kernels' numbers."""
     W, H, spp, K = TRAIN
     P, L = W * H, W * H * spp
@@ -747,11 +761,17 @@ def phase_train(dev, card: str, k4_report: str) -> dict:
     print(f"  {W}x{H}, spp {spp}, K {K} ({P * spp} lanes): ms per step "
           f"{np.mean(walls):.2f} (best {min(walls):.2f}) on {card}",
           flush=True)
-    print("  split (mean ms, CUDA events): " + ", ".join(
-        f"{n} {np.mean(v):.2f}" for n, v in split.items())
-        + "  [pack: host packing + upload; trace: K2; forward: derive, "
-          "raygen, K3 x spp; backward: K4 x spp + derive's backward; "
-          "update: Adam]", flush=True)
+    mean = {n: float(np.mean(v)) for n, v in split.items()}
+    fwd = ("derive", "raygen", "replay", "forward")
+    print(f"  split (mean ms, CUDA events): pack {mean['pack']:.2f}, trace "
+          f"{mean['trace']:.2f}, forward {sum(mean[n] for n in fwd):.2f} "
+          f"(derive {mean['derive']:.2f}, raygen x {spp} "
+          f"{mean['raygen']:.2f}, K3 x {spp} {mean['replay']:.2f}, loss "
+          f"{mean['forward']:.2f}), backward {mean['backward']:.2f}, update "
+          f"{mean['update']:.2f}  [pack: host packing + upload; trace: K2; "
+          f"derive: the replay table; raygen: camera rays; K3: the replay "
+          f"call and the sum; backward: K4 x spp + derive's backward; "
+          f"update: Adam]", flush=True)
     print(f"  launches over the 4 steps: K2 {launches[0]}, K3 {launches[1]}, "
           f"K4 {launches[2]}; losses {losses}", flush=True)
     if min(launches) < 1:
@@ -817,6 +837,9 @@ def phase_train(dev, card: str, k4_report: str) -> dict:
             tt, rays, tape0, pc, 0, bg, t_min=fp.t_min))
     k3_st = compare(out.cpu().numpy(), plain.cpu().numpy(),
                     f"K3 sample 0, all {P} pixels")
+    print(f"  K3 launch (blocks, threads, shared bytes) "
+          f"{rc.replay_fwd_cuda.shape} for {P} lanes; ptxas: "
+          f"{k3_ptxas(k3_report)}", flush=True)
     # K4 on the shape the step launches it: all of sample 0's lanes
     k4_st = grad_check(tt, rays, tape0, pc, bg, g, fp.t_min,
                        f"K4 sample 0, all {P} pixels")
@@ -1765,12 +1788,14 @@ def main() -> int:
     w, h, spp, K = REPLAY
     print(f"[8] K3 / K4 vs replay_plain and its autograd, all scenes at "
           f"{w}x{h}, spp {spp}, K {K}", flush=True)
-    phase_replay(dev, builds["replay_bwd"]["ptxas"])
+    phase_replay(dev, builds["replay_fwd"]["ptxas"],
+                 builds["replay_bwd"]["ptxas"])
 
     w, h, spp, K = TRAIN
     print(f"[9] main path: parallel/train.make_train_step_mega2, scene 0 at "
           f"{w}x{h}, spp {spp}, K {K}, Adam lr 1e-2", flush=True)
-    recs = phase_train(dev, card, builds["replay_bwd"]["ptxas"])
+    recs = phase_train(dev, card, builds["replay_fwd"]["ptxas"],
+                       builds["replay_bwd"]["ptxas"])
 
     w, h, spp, iters = POOL
     print(f"[10] K6 vs closest_geo_plain, all scenes: the first {iters} "

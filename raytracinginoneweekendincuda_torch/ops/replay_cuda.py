@@ -58,7 +58,8 @@ _P = ctypes.c_void_p
 def load_fwd_kernel():
     """Build (at first use) and load K3; returns (CDLL, build record)."""
     return _load("replay_fwd", "replay_fwd_launch",
-                 [ctypes.POINTER(_Params), _P, _P, _P, _P, _P])
+                 [ctypes.POINTER(_Params), _P, _P, _P, _P, _P,
+                  ctypes.POINTER(ctypes.c_int), _P])
 
 
 # K4's largest block (``kBlock`` in csrc/replay_bwd.cu; the loader checks
@@ -138,27 +139,35 @@ def _check(tt: ReplayTables, rep, rays, tape, pix_ctr, bg):
 def replay_fwd_cuda(tt: ReplayTables, rep, rays, tape, pix_ctr, sample: int,
                     bg, *, t_min: float) -> torch.Tensor:
     """K3: radiance [N, 3] of the replay (no autograd; see `replay`).
-    Launches on the current stream, no synchronisation."""
+    Launches on the current stream, no synchronisation.
+    ``replay_fwd_cuda.shape`` holds the last launch's (blocks, threads a
+    block, shared bytes)."""
     rep, rays, tape, pix_ctr, bg = (x.contiguous() for x in
                                     (rep, rays, tape, pix_ctr, bg))
     _check(tt, rep, rays, tape, pix_ctr, bg)
     n, K = rays.shape[0], tape.shape[0]
     lib, _ = load_fwd_kernel()
-    out = torch.empty((n, 3), dtype=torch.float32, device=rays.device)
+    dev = rays.device
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    queue = torch.empty(1, dtype=torch.int32, device=dev)
     prm = _params(tt, rep, bg, n, K, sample, t_min)
-    with torch.cuda.device(rays.device):
-        stream = torch.cuda.current_stream(rays.device).cuda_stream
+    shape = (ctypes.c_int * 3)()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.replay_fwd_launch(ctypes.byref(prm), rays.data_ptr(),
                                     tape.data_ptr(), pix_ctr.data_ptr(),
-                                    out.data_ptr(), stream)
+                                    out.data_ptr(), queue.data_ptr(), shape,
+                                    stream)
     if err != 0:
         raise RuntimeError(f"replay forward kernel launch failed: CUDA error "
                            f"{err}")
     replay_fwd_cuda.launches += 1
+    replay_fwd_cuda.shape = tuple(shape)
     return out
 
 
 replay_fwd_cuda.launches = 0
+replay_fwd_cuda.shape = None
 
 
 def replay_bwd_cuda(tt: ReplayTables, rep, rays, tape, pix_ctr, sample: int,

@@ -120,7 +120,10 @@ def make_train_step_mega2(scene: SceneArrays, meta: SceneMeta,
     ``pix`` [B] pixel ids (any order), ``target`` [B, 3] linear radiance on
     the parameters' device.  The device is the parameters'.  ``mark``, if
     given, is called with "pack", "trace", "forward", "backward" and
-    "update" as each phase ends (the step's callers time phases with it).
+    "update" as each phase ends (the step's callers time phases with it),
+    and inside the forward with "derive" once (the replay table) and
+    "raygen" and "replay" once a sample (the camera rays; K3 and the
+    sum), so that the forward's last part, "forward", is the loss.
     """
     spp = cfg.samples_per_pixel
     W, H = cfg.width, cfg.height
@@ -149,11 +152,14 @@ def make_train_step_mega2(scene: SceneArrays, meta: SceneMeta,
         tt = replay_table(sc, meta, tab,
                           kernel_space=mega2_kernel_id_space(tab, meta))
         img = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+        mark("derive")
         for s in range(spp):
             o, d, tm, pc = generate_rays(sc.camera, pix, s, W, H, cfg.seed)
             rays = torch.cat([o, d, tm[:, None]], dim=1)
+            mark("raygen")
             img = img + replay(tt, rays, tapes[s], pc, s,
                                sc.camera.background, t_min=t_min)
+            mark("replay")
         diff = img / spp - target
         loss = (diff * diff).sum() / (3.0 * B)
         mark("forward")

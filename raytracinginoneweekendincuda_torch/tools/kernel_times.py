@@ -316,8 +316,10 @@ def train_setup(shape, dev):
 
 def step_phase_ms(step, box: list, pix, target) -> dict:
     """One train step on the state in ``box`` (updated), split into its
-    phases (pack, trace, forward, backward, update) by CUDA events at the
-    step's ``mark`` points: (ms by phase, the step's loss)."""
+    phases (pack, trace, forward, backward, update, and the parts of the
+    forward where the step marks them) by CUDA events at the step's
+    ``mark`` points, a name marked more than once summed: (ms by phase,
+    the step's loss)."""
     events, names = [torch.cuda.Event(enable_timing=True)], []
 
     def mark(name):
@@ -328,8 +330,10 @@ def step_phase_ms(step, box: list, pix, target) -> dict:
     events[0].record()
     box[0], loss = step(box[0], pix, target, mark=mark)
     torch.cuda.synchronize()
-    return {n: a.elapsed_time(b) for n, a, b in zip(names, events,
-                                                    events[1:])}, loss
+    ms = {}
+    for n, a, b in zip(names, events, events[1:]):
+        ms[n] = ms.get(n, 0.0) + a.elapsed_time(b)
+    return ms, loss
 
 
 def path_times(dev) -> dict:

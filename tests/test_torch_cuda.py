@@ -325,6 +325,65 @@ def test_k3_k4_match_plain_and_autograd_on_card(name, dev):
         float(p_bg.abs().max()), 1e-30))
 
 
+@pytest.fixture(scope="module")
+def k3_step_lanes():
+    """Sample 0 of scene 0 at the train step's 640x360, K 8 (230,400
+    lanes, more than K3's grid holds), the tape traced by K2; K3's
+    inputs and the plain version's radiance on all lanes."""
+    from raytracinginoneweekendincuda_torch.ops import replay as trp
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    dev = torch.device("cuda", 0)
+    (tt, rays, tape, pc, bg, _), t_min = _k4_case(scenes.build_scene(0), dev,
+                                                  640, 360)
+    with torch.no_grad():
+        plain = trp.replay_plain(tt, rays, tape, pc, 0, bg, t_min=t_min)
+    return tt, rays, tape, pc, bg, t_min, plain
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4097, "all"])
+def test_k3_queue_edges_match_plain_on_card(n, k3_step_lanes):
+    """K3 on the first n lanes (one lane, a partial warp, a warp and one,
+    more lanes than a block, and all 230,400, more than the persistent
+    grid's threads, so that they refill): within K1's bounds of the plain
+    version (at most 1% of lanes above 1e-4, mean < 2e-3), every lane
+    written, and the grid of csrc/persistent_grid.cuh: 384-thread blocks
+    (kBlock in csrc/replay_fwd.cu), or n rounded up to a warp below that,
+    never more blocks than the lanes need, at most the blocks the card
+    holds (two a SM: a multiple of the SMs)."""
+    from raytracinginoneweekendincuda_torch.ops import replay_cuda as rc
+
+    tt, rays, tape, pc, bg, t_min, plain = k3_step_lanes
+    n = rays.shape[0] if n == "all" else n
+    out = rc.replay_fwd_cuda(tt, tt.rep.detach(), rays[:n].contiguous(),
+                             tape[:, :n].contiguous(), pc[:n].contiguous(),
+                             0, bg, t_min=t_min)
+    torch.cuda.synchronize()
+    blocks, threads, smem = rc.replay_fwd_cuda.shape
+    assert smem == 0 and threads == min(-(-n // 32) * 32, 384)
+    if n == rays.shape[0]:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert blocks % sms == 0 and blocks * threads < n
+    else:
+        assert blocks == -(-n // threads)
+    assert torch.isfinite(out).all()
+    diff = (out - plain[:n]).abs()
+    assert (diff.max(1).values > 1e-4).float().mean() <= 0.01
+    assert float(diff.mean()) < 2e-3
+
+
+def test_k3_two_launches_agree_on_card(k3_step_lanes):
+    """Which thread replays which lane changes from run to run; a lane's
+    radiance does not: two launches bit-equal on all 230,400 lanes."""
+    from raytracinginoneweekendincuda_torch.ops import replay_cuda as rc
+
+    tt, rays, tape, pc, bg, t_min, _ = k3_step_lanes
+    a, b = (rc.replay_fwd_cuda(tt, tt.rep.detach(), rays, tape, pc, 0, bg,
+                               t_min=t_min) for _ in range(2))
+    assert torch.equal(a, b)
+
+
 def test_k4_matches_fd_of_k3(dev):
     """The marble probe's background and one albedo entry: K4's gradient
     within 5% of central FD of K3's primal (both linear in them, so FD is

@@ -139,11 +139,11 @@ def test_entry_points_have_no_cpu_default(entry):
 
 @pytest.mark.parametrize("tool", ("probe_pair", "probe_intmul",
                                   "probe_mosaic", "lane_share",
-                                  "kernel_times", "build_ab", "k4_split"))
+                                  "kernel_times", "build_ab", "replay_split"))
 def test_probe_tools_without_card_raise(tool):
     """The probe tools and ``lane_share`` run on the card unless given
     ``--device cpu`` (tests/test_torch_probes.py runs the probes so);
-    ``kernel_times``, ``build_ab`` and ``k4_split`` run only on the
+    ``kernel_times``, ``build_ab`` and ``replay_split`` run only on the
     card."""
     import importlib
 

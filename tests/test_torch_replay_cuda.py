@@ -1,7 +1,7 @@
 """PyTorch port: what the replay kernels' host side decides without a
 card -- K4's choice of where it sums d_rep (ops/replay_cuda.py) on the
-port's own tables -- the K3 / K4 record of tools/kernel_times, and the K4
-variants of tools/k4_split."""
+port's own tables -- the K3 / K4 record of tools/kernel_times, and the K3
+/ K4 variants of tools/replay_split."""
 
 import os
 
@@ -16,7 +16,7 @@ from raytracinginoneweekendincuda_torch.ops import mega2
 from raytracinginoneweekendincuda_torch.ops import replay as rp
 from raytracinginoneweekendincuda_torch.ops import replay_cuda as rc
 from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
-from raytracinginoneweekendincuda_torch.tools import k4_split, kernel_times
+from raytracinginoneweekendincuda_torch.tools import kernel_times, replay_split
 from raytracinginoneweekendincuda_torch.utils import cuda_build
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -102,13 +102,41 @@ def test_kernel_times_replay_inputs_on_cpu():
 
 
 def test_k4_split_variants_apply_to_the_kernel_source():
-    """tools/k4_split makes its variants of K4 by text replacement: each
+    """tools/replay_split makes its variants of K4 by text replacement: each
     must find its text in csrc/replay_bwd.cu, and each changes the source
     but the two that only build or launch it otherwise."""
     with open(os.path.join(cuda_build.CSRC_DIR, "replay_bwd.cu")) as f:
         src = f.read()
-    vs = k4_split.change_variants(src)
+    vs = replay_split.k4_change_variants(src)
     same = {n for n, (v, _, _) in vs.items() if v == src}
     assert same == {"change", "change, texture columns by index"}
     assert vs["change, texture columns by index"][1] == "parent"
     assert "atomicAdd(acc" not in vs["change, no d_rep atomics"][0]
+
+
+def test_k3_split_variants_apply_to_the_kernel_source():
+    """tools/replay_split makes its variants of K3 by text replacement:
+    each must find its text in csrc/replay_fwd.cu and change the source,
+    and each keeps the launch's entry point."""
+    with open(os.path.join(cuda_build.CSRC_DIR, "replay_fwd.cu")) as f:
+        src = f.read()
+    vs = replay_split.k3_change_variants(src)
+    assert {n for n, (v, _, _) in vs.items() if v == src} == {"change"}
+    assert all(h == "change" and sig == "change"
+               for _, h, sig in vs.values())
+    for v, _, _ in vs.values():
+        assert 'extern "C" int replay_fwd_launch(' in v
+    assert "drained" in src
+    assert "if (!drained)" not in \
+        vs["change, queue asked after it is empty"][0]
+    assert "atomicAdd(queue, 32u)" in vs["change, warp rounds of 32"][0]
+    assert "__all_sync" in vs["change, refill rounds of 32"][0]
+    for blk in (128, 256):
+        assert f"constexpr int kBlock = {blk};" in \
+            vs[f"change, {blk} threads"][0]
+    assert "__launch_bounds__(kBlock, 3)" in vs["change, 3 blocks a SM"][0]
+    assert "bounce_fwd(ps, tape" in vs["change, rows in shared memory"][0]
+    assert "wray + 7 * (lane - base)" in \
+        vs["change, rays through shared memory"][0]
+    assert replay_split.k3_parent_variants("x") == {
+        "parent": ("x", "parent", "parent")}

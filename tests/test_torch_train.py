@@ -111,3 +111,21 @@ def test_params_from_numpy_round_trips_split_params(setup):
     assert merged.camera is params["camera"]
     np.testing.assert_array_equal(params["sph_c0"].detach().numpy(),
                                   np.asarray(ts0.sph_c0))
+
+
+def test_step_marks_its_phases_in_order(setup):
+    """The step's ``mark`` points (chip_smoke's phase split): the forward
+    splits into the replay table, then camera rays and replay once a
+    sample, then the loss; a step with marks gives the loss of one
+    without."""
+    _, _, ts0, tm, pix, tgt = setup
+    params = ttrain.split_params(ts0, "cpu")
+    names = []
+    state, step = _port_step(ts0, tm, params)
+    _, marked = step(state, pix, torch.from_numpy(tgt), mark=names.append)
+    assert names == ["pack", "trace", "derive",
+                     *["raygen", "replay"] * SPP,
+                     "forward", "backward", "update"]
+    state, step = _port_step(ts0, tm, ttrain.split_params(ts0, "cpu"))
+    _, plain = step(state, pix, torch.from_numpy(tgt))
+    assert float(marked) == float(plain)
