@@ -7,14 +7,15 @@ Builds the port's CUDA kernels from the sources in this checkout -- K1
 (``csrc/replay_fwd.cu``), K4 (``csrc/replay_bwd.cu``), K5
 (``csrc/mega_bounces.cu``), K6 (``csrc/closest_geo.cu``) and the probes
 P1-P3 (``csrc/probe_pair.cu``, ``probe_intmul.cu``, ``probe_mosaic.cu``),
-one nvcc each, all started together -- and drives the port's four paths:
+one nvcc each, all started together -- and drives the port's five paths:
 the render (the CLI's ``ops/render.render``, engine ``mega2``, at the
 reference's headline config, and on a world large enough for the chunk
 cull), the training step
 (``parallel/train.make_train_step_mega2``), the XLA-family engines
-(``render`` with ``wavefront_pallas`` and ``mega``) and the probe tools
-(``tools/probe_*.main``), holding every kernel against its plain PyTorch
-version.  Phases:
+(``render`` with ``wavefront_pallas`` and ``mega``), the probe tools
+(``tools/probe_*.main``) and the general train step
+(``parallel/train.make_train_step``, plain PyTorch, held against K2-K4),
+holding every kernel against its plain PyTorch version.  Phases:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the kernels' build times and ptxas reports;
@@ -112,7 +113,28 @@ version.  Phases:
     winner); K1 against the plain version on every
     97th pixel id, whose cull counts (slab tests, chunks and rows let
     through, per lane-bounce) and the frame's lane-bounces (K2's tapes)
-    give K1's bound with the cull and without it.
+    give K1's bound with the cull and without it;
+15. the general train step at phase 9's configuration (scene 0 at
+    640x360, spp 8, K 8, Adam lr 1e-2): engine ``taped``, one warm-up and
+    three timed steps, and ``scan``, one warm-up and one timed step, each
+    split at its marks by CUDA events, with its peak allocated memory,
+    the device's busy share and launches of one profiled step, beside
+    phase 9's mega2 step (and that step's peak memory); the port's
+    kernels launched by those steps (none: plain PyTorch); then its
+    gates: (b)1 the warm-up steps of the two engines (the same
+    parameters; the gradients before the update) agree, loss within rel
+    1e-5 and every leaf with a gradient within rel-L2 1e-3; (b)2
+    ``replay.generate_tape`` on sample 0 against K2's tape in global ids,
+    at least 97% of lanes identical over all bounces; (b)3 on K2's tape,
+    ``replay.replay`` against K3 (K1's bounds) and autograd through it
+    against K4 (the gradient of a seeded weighted sum of the radiance,
+    every leaf within rel-L2 1e-3); (b)4 one step of each engine on scene
+    4 at 12x8@2, K 4, on the card and on the CPU from the same
+    parameters: loss within rel 1e-5, every leaf after Adam within rtol
+    1e-5; (b)5 ``render`` with ``differentiable=True`` (``bruteforce``,
+    scene 4 at 64x32@4) equal to the ``while`` form's frame on the card;
+    (b)6 ``examples/recover_geometry.main`` on the card passes its own
+    assert; the phase's seconds.
 
 Prints the kernel record and the card on lines of their own, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, before that
@@ -123,7 +145,9 @@ from __future__ import annotations
 
 import dataclasses
 import collections
+import contextlib
 import hashlib
+import io
 import json
 import os
 import re
@@ -138,6 +162,7 @@ import torch
 
 from raytracinginoneweekendincuda_torch.core import rng
 from raytracinginoneweekendincuda_torch.core.image import write_ppm
+from raytracinginoneweekendincuda_torch.examples import recover_geometry
 from raytracinginoneweekendincuda_torch.models.scenes import (
     SCENE_NAMES, build_scene, sphere_field,
 )
@@ -184,6 +209,10 @@ TRACE = (64, 32, 2, 8)    # every scene, K2 against the plain version
 TRACE_FIELD = (32, 16, 2, 8)   # K2 on sphere_field(FIELD_SMALL / _LARGE)
 REPLAY = (64, 32, 1, 8)   # every scene, K3 / K4 against the plain version
 TRAIN = (640, 360, 8, 8)  # the training step: width, height, spp, K
+GENERAL_SMALL = (4, 12, 8, 2, 4)   # phase 15 (b)4: scene, w, h, spp, K
+DIFF_RENDER = (4, 64, 32, 4)       # phase 15 (b)5: scene, w, h, spp
+TAPE_AGREE = 0.97         # XLA tape vs K2: share of identical lanes
+                          # (tests/test_replay.py's bound: f32 ties)
 MAX_DIFF_LANES = 0.001    # K2: at most 0.1% of lanes may differ
 GRAD_REL = 1e-3           # K4: d_rep rel-L2, and the per-lane d_rays /
                           # d_bg tolerance relative to the largest entry
@@ -356,15 +385,16 @@ def once_ms(fn):
     return a.elapsed_time(b), out
 
 
-def device_events(fn, repeats: int) -> list:
+def device_events(fn, repeats: int, warm: bool = True) -> list:
     """(name, device microseconds, launches) of every kernel that
     ``repeats`` calls of ``fn`` ran, from torch.profiler, after one
-    warm-up call.  Sums the profiler's raw device records by name
-    (``key_averages`` takes minutes over the ~340 k launches of a full
-    ``mega`` frame)."""
+    warm-up call (none if not ``warm``).  Sums the profiler's raw device
+    records by name (``key_averages`` takes minutes over the ~340 k
+    launches of a full ``mega`` frame)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(repeats):
@@ -733,8 +763,10 @@ def phase_replay(dev, k3_report: str, k4_report: str) -> None:
     k4_launch(f"sphere_field({FIELD_SMALL}) ({tt.NP} table rows)", False)
 
 
-def phase_train(dev, card: str, k3_report: str, k4_report: str) -> dict:
-    """The training step at full width; returns the kernels' numbers."""
+def phase_train(dev, card: str, k3_report: str, k4_report: str):
+    """The training step at full width; returns the kernels' numbers, and
+    the step's (ms per step, busy share, launches per step) for phase 15
+    (None where the profiler returned no device record)."""
     W, H, spp, K = TRAIN
     P, L = W * H, W * H * spp
     pix_all = torch.arange(P, dtype=torch.int32, device=dev)
@@ -914,7 +946,8 @@ def phase_train(dev, card: str, k3_report: str, k4_report: str) -> dict:
     print(f"  scene 4 at 12x8@2, 4 steps: losses {l4}", flush=True)
     if not (np.isfinite(l4).all() and l4[-1] < 0.7 * l4[0]):
         raise AssertionError("scene 4 loss did not fall below 0.7x")
-    return recs
+    return recs, (step_ms, busy_ms / step_ms if evs else None,
+                  sum(n for *_, n in evs) if evs else None)
 
 
 def pool_rays(desc, dev):
@@ -1601,6 +1634,254 @@ def phase_large_world(dev, card: str) -> dict:
             "pixels_differing_unculled": int(differ.numel())}
 
 
+def grads_of(params) -> list:
+    """Copies of the gradients of a parameter dict's leaves (zeros where
+    none arrived), in `train.parameter_list` order."""
+    return [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+            for p in train.parameter_list(params)]
+
+
+def leaf_rel_l2(got: list, want: list) -> list:
+    """rel-L2 of each leaf's gradient; 0 where both are zero."""
+    return [float((g - w).norm()) / float(w.norm()) if float(w.norm()) > 0
+            else (0.0 if float(g.norm()) == 0 else float("inf"))
+            for g, w in zip(got, want)]
+
+
+def taped_scan_gap(first: dict):
+    """(summary, bad) of the two engines' first steps ``first[engine] =
+    (loss, gradients)``: the loss's relative gap and the worst rel-L2 of a
+    leaf with a gradient; bad if above rel 1e-5 / GRAD_REL."""
+    (l_t, g_t), (l_s, g_s) = first["taped"], first["scan"]
+    loss_rel = abs(l_t - l_s) / abs(l_s)
+    rel = [r for r, g in zip(leaf_rel_l2(g_t, g_s), g_s)
+           if float(g.norm()) > 0]
+    return (f"loss rel {loss_rel:.2e}; gradient rel-L2 worst {max(rel):.2e} "
+            f"over the {len(rel)} leaves with one",
+            loss_rel > 1e-5 or max(rel) > GRAD_REL)
+
+
+def general_step(start, meta, cfg, engine: str, dev, lr: float = 1e-2):
+    """(state, step) of ``make_train_step(engine)`` with Adam at ``lr``
+    over fresh parameters of ``start`` on ``dev``."""
+    state = train.init_state(start, lambda ps: torch.optim.Adam(ps, lr=lr),
+                             device=dev)
+    return state, train.make_train_step(start, meta, cfg, engine=engine)
+
+
+def phase_general_step(dev, card: str, mega2_step) -> None:
+    """Phase 15: the general train step (module notes)."""
+    t_phase = time.perf_counter()
+    W, H, spp, K = TRAIN
+    P = W * H
+    pix = np.arange(P, dtype=np.int32)
+    start, meta, cfg, target, state9, step9 = train_setup((0, *TRAIN), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    step9(state9, pix, target)
+    torch.cuda.synchronize()
+    m2_ms, m2_busy, m2_launches = mega2_step
+    mega2_line = (f"mega2 step (phase 9): {m2_ms:.2f} ms, busy "
+                  f"{'not measured' if m2_busy is None else f'{m2_busy:.3f}'}"
+                  f", {m2_launches or 'not measured'} launches, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                  f"({held / 2**30:.2f} held before the step)")
+    del state9, step9
+
+    # (a) each engine at full width; its warm-up step, from the start's
+    # parameters, gives gate (b)1 its loss and gradients.  The step is
+    # plain PyTorch: it launches none of the port's kernels
+    counters = (mega2.render_radiance_cuda, mega2.trace_tapes_cuda,
+                rc.replay_fwd_cuda, rc.replay_bwd_cuda, mega.mega_bounces_cuda,
+                pallas_hit.closest_geo_cuda)
+    for c in counters:
+        c.launches = 0
+    first = {}
+    for engine, timed in (("taped", 3), ("scan", 1)):
+        state, step = general_step(start, meta, cfg, engine, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        state, loss = step(state, start, pix, target)            # warm-up
+        torch.cuda.synchronize()
+        first[engine] = (float(loss), grads_of(state.params))
+        box, walls, split, losses = [state], [], {}, [float(loss)]
+        with_rest = lambda st, p, t, mark=None: step(st, start, p, t,
+                                                     mark=mark)
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            phases, loss = step_phase_ms(with_rest, box, pix, target)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            for name, ms in phases.items():
+                split.setdefault(name, []).append(ms)
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = float(np.mean(walls))
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{engine}: non-finite training loss")
+
+        def one_step():
+            box[0], _ = step(box[0], start, pix, target)
+
+        evs = device_events(one_step, 1, warm=False)
+        busy_ms = sum(us for _, us, _ in evs) / 1e3
+        busy = (f"busy {busy_ms / step_ms:.3f} ({busy_ms:.2f} ms of device "
+                f"kernels), {sum(n for *_, n in evs)} launches a step"
+                if evs else "busy and launches not measured (the profiler "
+                            "returned no device record)")
+        print(f"  {engine}: {step_ms:.2f} ms per step (mean of {timed}, "
+              f"host clock + sync), split (CUDA events, mean ms) "
+              + ", ".join(f"{n} {np.mean(v):.2f}" for n, v in split.items())
+              + f"; peak allocated {peak / 2**30:.2f} GiB ({held / 2**30:.2f}"
+              f" held before); {busy}; losses {losses}; on {card}",
+              flush=True)
+        if evs:
+            print(f"    busiest: " + ", ".join(
+                f"{key[:40]} {us / 1e3:.2f} ms x{n}" for key, us, n in
+                sorted(evs, key=lambda e: -e[1])[:5]), flush=True)
+        print(f"    beside it, the {mega2_line}", flush=True)
+        del state, step, box, evs
+
+    print(f"  the port's kernels launched by the steps: "
+          f"{sum(c.launches for c in counters)} (plain PyTorch path)",
+          flush=True)
+
+    # (b)1 taped against scan, one step each from the same parameters, the
+    # gradients before the update.  In f32 the two differ on this scene by
+    # the reference's own rounding (ROADMAP.md queue 3: the search's
+    # coefficient-form sphere test against the replay's direct form, on
+    # lanes that meet the ground sphere near a checker edge): phase (a)'s
+    # warm-up steps measure it.  The gate holds the two to one function in
+    # f64, on the same frame
+    print(f"  (b)1 taped vs scan, f32 (phase (a)'s warm-up steps; measured, "
+          f"the reference's rounding): " + taped_scan_gap(first)[0],
+          flush=True)
+    scene64, meta64 = compile_scene(build_scene(0), W, H, dtype=np.float64)
+    start64 = scene64._replace(tex_c0=np.clip(
+        np.asarray(scene64.tex_c0) * 0.5 + 0.2, 0.0, 1.0))
+    first = {}
+    for engine in ("taped", "scan"):
+        t0 = time.perf_counter()
+        state, step = general_step(start64, meta64, cfg, engine, dev)
+        state, loss = step(state, start64, pix, target.double())
+        torch.cuda.synchronize()
+        first[engine] = (float(loss), grads_of(state.params))
+        print(f"    f64 {engine} step: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        del state, step
+    line, bad = taped_scan_gap(first)
+    print(f"  (b)1 taped vs scan, f64, {W}x{H}@{spp}, K {K}: {line}",
+          flush=True)
+    if bad:
+        raise AssertionError("taped and scan steps disagree")
+    del first
+
+    # (b)2 the XLA tape against K2's (global ids), sample 0 of the frame
+    st = hit.scene_tensors(start, dev)
+    pix_t = torch.arange(P, dtype=torch.int32, device=dev)
+    o, d, tm, pc = generate_rays(st.camera, pix_t, 0, W, H, cfg.seed)
+    with torch.no_grad():
+        tape_x, _ = rp.generate_tape(st, meta, o, d, tm, pc, 0,
+                                     max_bounces=K, t_min=cfg.t_min)
+    tape_k = mega2.mega2_tapes(start, meta, pix, 1, width=W, height=H,
+                               max_bounces=K, t_min=cfg.t_min, seed=cfg.seed,
+                               id_space="global", device=dev)[0]
+    same = float((tape_x == tape_k).all(0).float().mean())
+    print(f"  (b)2 XLA tape vs K2, sample 0 ({P} lanes, K {K}): {same:.6f} "
+          f"of lanes identical over all bounces", flush=True)
+    if same < TAPE_AGREE:
+        raise AssertionError("the XLA tape and K2's disagree")
+    del tape_x, st
+
+    # (b)3 the XLA replay against K3 / K4 on K2's tape: radiance and the
+    # gradient of a weighted sum of it
+    params = train.split_params(start, dev)
+    sc = train.merge_params(hit.scene_tensors(start, dev), params)
+    o, d, tm, pc = generate_rays(sc.camera, pix_t, 0, W, H, cfg.seed)
+    fp = mega2.frame_params(start, cfg)
+    rad_x = rp.replay(sc, meta, tape_k, o, d, tm, pc, 0, max_bounces=K,
+                      t_min=cfg.t_min)
+    tt = rp.replay_table(sc, meta, mega2.pack_mega2_tables(start, meta, dev))
+    rad_k = rc.replay(tt, torch.cat([o, d, tm[:, None]], dim=1), tape_k, pc,
+                      0, sc.camera.background, t_min=fp.t_min)
+    compare(rad_k.detach().cpu().numpy(), rad_x.detach().cpu().numpy(),
+            f"(b)3 K3 vs the XLA replay, sample 0 ({P} lanes)")
+    wts = torch.as_tensor(np.random.default_rng(15).random((P, 3)),
+                          dtype=torch.float32, device=dev)
+    leaves = train.parameter_list(params)
+    g_x, g_k = ([torch.zeros_like(p) if g is None else g
+                 for g, p in zip(torch.autograd.grad(
+                     (r * wts).sum(), leaves, retain_graph=True,
+                     allow_unused=True), leaves)]
+                for r in (rad_x, rad_k))
+    rel = leaf_rel_l2(g_k, g_x)
+    names = [*train.DIFF_SCENE_FIELDS,
+             *(f"camera.{f}" for f in params["camera"]._fields)]
+    print(f"  (b)3 K4 vs autograd of the XLA replay, d(weighted sum): "
+          f"rel-L2 by leaf with a gradient: " + ", ".join(
+              f"{n} {r:.1e}" for n, r, g in zip(names, rel, g_x)
+              if float(g.norm()) > 0), flush=True)
+    if max(rel) > GRAD_REL:
+        raise AssertionError("K4's gradient and the XLA replay's disagree")
+    del params, sc, rad_x, rad_k, tt, g_x, g_k, tape_k
+
+    # (b)4 the card against the CPU: one step of each engine, scene 4
+    sid, w, h, spp4, k4 = GENERAL_SMALL
+    scene4, meta4 = compile_scene(build_scene(sid), w, h, dtype=np.float32)
+    cfg4 = RenderConfig(width=w, height=h, samples_per_pixel=spp4,
+                        max_bounces=k4)
+    start4 = scene4._replace(tex_c0=np.clip(
+        np.asarray(scene4.tex_c0) * 0.5 + 0.2, 0.0, 1.0).astype(np.float32))
+    tgt4 = np.random.default_rng(4).random((w * h, 3)).astype(np.float32)
+    for engine in ("taped", "scan"):
+        out = {}
+        for where in ("cpu", dev):
+            state, step = general_step(start4, meta4, cfg4, engine, where,
+                                       lr=0.05)
+            state, loss = step(state, start4, np.arange(w * h),
+                               torch.as_tensor(tgt4, device=where))
+            out[str(where)] = (float(loss), [p.detach().cpu() for p in
+                                             train.parameter_list(
+                                                 state.params)])
+        (l_c, p_c), (l_g, p_g) = out["cpu"], out[str(dev)]
+        loss_rel = abs(l_g - l_c) / abs(l_c)
+        leaf = max(float(((g - c).abs() / c.abs().clamp_min(1e-30)).max())
+                   for g, c in zip(p_g, p_c))
+        print(f"  (b)4 card vs CPU, {engine}, scene {sid} at {w}x{h}@{spp4}, "
+              f"K {k4}: loss rel {loss_rel:.2e}, leaves after Adam max rel "
+              f"{leaf:.2e}", flush=True)
+        if loss_rel > 1e-5 or not all(
+                torch.allclose(g, c, rtol=1e-5, atol=0)
+                for g, c in zip(p_g, p_c)):
+            raise AssertionError(f"{engine}: the card's step differs from "
+                                 f"the CPU's")
+
+    # (b)5 the differentiable render (the scan form) equals the while form
+    sid, w, h, spp5 = DIFF_RENDER
+    scene5, meta5 = compile_scene(build_scene(sid), w, h, dtype=np.float32)
+    cfg5 = RenderConfig(width=w, height=h, samples_per_pixel=spp5,
+                        engine="bruteforce")
+    frames = [render(scene5, meta5, cfg5.with_(differentiable=flag),
+                     device=dev) for flag in (False, True)]
+    print(f"  (b)5 render(differentiable=True), bruteforce, scene {sid} at "
+          f"{w}x{h}@{spp5}: {int((frames[0] == frames[1]).all(-1).sum())}/"
+          f"{w * h} pixels equal to the while form's", flush=True)
+    if not np.array_equal(*frames) or not frames[0].any():
+        raise AssertionError("the differentiable frame differs")
+
+    # (b)6 the geometry example passes its own assert
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        recover_geometry.main(["--device", "cuda"])
+    summary = [ln for ln in log.getvalue().splitlines()
+               if ln.startswith("center error")]
+    print(f"  (b)6 examples/recover_geometry on the card: {summary[-1]} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1794,8 +2075,8 @@ def main() -> int:
     w, h, spp, K = TRAIN
     print(f"[9] main path: parallel/train.make_train_step_mega2, scene 0 at "
           f"{w}x{h}, spp {spp}, K {K}, Adam lr 1e-2", flush=True)
-    recs = phase_train(dev, card, builds["replay_fwd"]["ptxas"],
-                       builds["replay_bwd"]["ptxas"])
+    recs, mega2_step = phase_train(dev, card, builds["replay_fwd"]["ptxas"],
+                                   builds["replay_bwd"]["ptxas"])
 
     w, h, spp, iters = POOL
     print(f"[10] K6 vs closest_geo_plain, all scenes: the first {iters} "
@@ -1826,6 +2107,14 @@ def main() -> int:
           f"sphere_field({FIELD_LARGE}) at {w}x{h}@{spp}; K1 culled and "
           f"unculled", flush=True)
     large = phase_large_world(dev, card)
+
+    w, h, spp, K = TRAIN
+    print(f"[15] main path: parallel/train.make_train_step (engines taped "
+          f"and scan), scene 0 at {w}x{h}, spp {spp}, K {K}, Adam lr 1e-2; "
+          f"gates: taped vs scan, the XLA tape vs K2, the XLA replay vs "
+          f"K3 / K4, card vs CPU, the differentiable render, "
+          f"recover_geometry", flush=True)
+    phase_general_step(dev, card, mega2_step)
 
     if any(m.startswith(("jax", "raytracinginoneweekendincuda_tpu"))
            for m in sys.modules):

@@ -1,13 +1,12 @@
 """Inverse rendering: recover material parameters from a target image.
 
 Port of the JAX package's ``examples/inverse_render.py``: the same scene
-(a diffuse and a metal sphere over a marble ground), the same target and
-the same freeze of every parameter but the albedos (``tex_c0``,
-``tex_c1``).  The JAX example uses the general XLA train step
-``make_train_step`` over a device mesh; the port has no general step yet,
-so this one runs the port's single-device mega2 step
-(``parallel/train.make_train_step_mega2``: trace K2, replay K3 / K4 on the
-card, their plain PyTorch versions on the CPU).
+(a diffuse and a metal sphere over a marble ground), the same target (the
+``bruteforce`` engine's linear radiance), the same general train step
+(``parallel/train.make_train_step``, engine ``auto``: the taped replay of
+the XLA path) and the same freeze of every parameter but the albedos
+(``tex_c0``, ``tex_c1``).  The JAX example runs its step over a device
+mesh; the port's step runs on one device.
 
 Pathwise gradients capture channels that vary continuously along light
 paths (albedos, emission, material scalars, camera, geometry through
@@ -30,8 +29,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=80)
     ap.add_argument("--out", type=str, default="out/inverse_render")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="cuda: the CUDA kernels (raises without a card); "
-                         "cpu: their plain PyTorch versions")
+                    help="cuda: the card (raises without one); cpu: the "
+                         "CPU")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -68,7 +67,7 @@ def main(argv=None) -> int:
     init_metal = np.array([0.60, 0.60, 0.60])
 
     cfg = RenderConfig(width=W, height=H, samples_per_pixel=SPP,
-                       max_bounces=8, engine="mega2")
+                       max_bounces=8)
     true_scene, meta = compile_scene(make_desc(true_albedo, true_metal), W, H,
                                      dtype=np.float32)
     target_img = render(true_scene, meta, cfg, device=dev, gamma=False)
@@ -86,12 +85,12 @@ def main(argv=None) -> int:
         scene, lambda _ps: torch.optim.Adam(
             [params["tex_c0"], params["tex_c1"]], lr=2e-2),
         params=params)
-    step = train.make_train_step_mega2(scene, meta, cfg)
+    step = train.make_train_step(scene, meta, cfg)
 
     print(f"device {dev}; optimizing {args.steps} steps ({W}x{H}, {SPP} spp)",
           file=sys.stderr)
     for i in range(args.steps):
-        state, loss = step(state, pix, target)
+        state, loss = step(state, scene, pix, target)
         if i % 10 == 0 or i == args.steps - 1:
             tc = state.params["tex_c0"].detach().cpu().numpy()
             a, m = tc[0], tc[1]

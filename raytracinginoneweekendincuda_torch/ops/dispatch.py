@@ -13,9 +13,10 @@ from .integrator import trace
 
 def trace_dispatch(scene, meta, o, d, time, pix_ctr, sample, *,
                    engine: str = "bruteforce", max_bounces: int,
-                   t_min: float):
+                   t_min: float, differentiable: bool = False):
     if engine != "bruteforce":
         raise NotImplementedError(
             f"engine {engine!r} is not ported yet (see ROADMAP.md, queue 1)")
     return trace(scene, meta, o, d, time, pix_ctr, sample,
-                 max_bounces=max_bounces, t_min=t_min)
+                 max_bounces=max_bounces, t_min=t_min,
+                 differentiable=differentiable)

@@ -328,7 +328,10 @@ def assemble_record(scene, meta, der: Derived, o, d, time, t, kind, is_best,
     p = o + t_safe[:, None] * d
 
     # ---- sphere record (Sphere.h:40-58 + GetSphereUV:74-81)
-    srow = der.sph_tab[is_best]
+    # winner rows by index_select: its backward adds with index_add_;
+    # advanced indexing's backward sorts the indices, and with most lanes
+    # on a few rows it took most of a train step's backward on the card
+    srow = der.sph_tab.index_select(0, is_best)
     c0, dc = srow[:, 0:3], srow[:, 3:6]
     frac = (time - srow[:, 6]) * srow[:, 7]
     center = c0 + frac[:, None] * dc
@@ -354,7 +357,7 @@ def assemble_record(scene, meta, der: Derived, o, d, time, t, kind, is_best,
     mat_s = srow[:, 11]
 
     # ---- quad record (Quad.h:76-98)
-    qrow = der.quad_tab[iq_best]
+    qrow = der.quad_tab.index_select(0, iq_best)
     n_q = qrow[:, 0:3]
     pq = p - qrow[:, 9:12]
     alpha = vm.dot(pq, qrow[:, 3:6])
@@ -383,6 +386,6 @@ def assemble_record(scene, meta, der: Derived, o, d, time, t, kind, is_best,
         normal = torch.where(is_med[:, None], n_out, normal)
 
     mat_i = mat.to(torch.int64)
-    mrow = der.mat_tab[mat_i]
+    mrow = der.mat_tab.index_select(0, mat_i)
     return HitRecord(t=t, p=p, normal=normal, u=uu, v=vv, front=front,
                      mat=mat_i, hit=hit, mrow=mrow)

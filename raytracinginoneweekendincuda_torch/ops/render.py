@@ -45,10 +45,11 @@ def resolve_device(device) -> torch.device:
 
 def render_chunk(scene, meta, pix: torch.Tensor, *, width: int, height: int,
                  spp: int, seed: int, max_bounces: int, t_min: float,
-                 gamma: bool = True, engine: str = "bruteforce"):
+                 differentiable: bool = False, gamma: bool = True,
+                 engine: str = "bruteforce"):
     """Average radiance [P, 3] over ``spp`` samples for one pixel chunk
     ``pix`` [P] of a tensor scene (`hit.scene_tensors`), gamma applied
-    when ``gamma``."""
+    when ``gamma``; ``differentiable`` runs the integrator's scan form."""
     from .dispatch import trace_dispatch
     from .raygen import generate_rays
 
@@ -59,7 +60,8 @@ def render_chunk(scene, meta, pix: torch.Tensor, *, width: int, height: int,
                                             height, seed)
         acc = acc + trace_dispatch(scene, meta, o, d, time, pix_ctr, s,
                                    engine=engine, max_bounces=max_bounces,
-                                   t_min=t_min)
+                                   t_min=t_min,
+                                   differentiable=differentiable)
     col = acc / float(spp)
     if gamma:
         col = torch.sqrt(torch.clamp_min(col, 0.0).double()).to(col.dtype)
@@ -83,7 +85,8 @@ def _render_chunked(scene, meta, cfg: RenderConfig, dev, gamma: bool,
         col = render_chunk(st, meta, ids, width=W, height=H,
                            spp=cfg.samples_per_pixel, seed=cfg.seed,
                            max_bounces=cfg.max_bounces, t_min=t_min,
-                           gamma=gamma, engine=cfg.engine)
+                           differentiable=cfg.differentiable, gamma=gamma,
+                           engine=cfg.engine)
         out[start:start + P] = col.cpu().numpy()
     fb = out.reshape(H, W, 3)                  # row 0 = bottom scanline
     if out_u8:  # the quantized-uint8 contract (kernel.cu:709-718), in f64
@@ -94,15 +97,14 @@ def _render_chunked(scene, meta, cfg: RenderConfig, dev, gamma: bool,
 def render(scene: SceneArrays, meta: SceneMeta, cfg: RenderConfig, *,
            device, gamma: bool = True, out_u8: bool = False) -> np.ndarray:
     """Render a full frame on ``device`` with engine ``cfg.engine`` ->
-    numpy [H, W, 3], top row first (float, or uint8 when ``out_u8``)."""
+    numpy [H, W, 3], top row first (float, or uint8 when ``out_u8``).
+    ``cfg.differentiable`` selects the integrator's scan form on the
+    chunked ``bruteforce`` engine; the other engines have one loop each
+    and ignore it, as in the JAX package."""
     if cfg.engine not in ENGINES:
         raise NotImplementedError(
             f"engine {cfg.engine!r} is not ported yet; the port has "
             f"{', '.join(ENGINES)} (see ROADMAP.md, queue 1)")
-    if cfg.differentiable:
-        raise NotImplementedError(
-            "differentiable=True (the scan-form bounce loop) is not ported "
-            "yet (see ROADMAP.md, queue 1 item 1)")
     dev = resolve_device(device)
     engine = cfg.engine
     if engine == "mega2":

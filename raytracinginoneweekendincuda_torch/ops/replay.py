@@ -1,14 +1,31 @@
 """Taped replay: the differentiable leg of the gradient path.
 
-Port of ``raytracinginoneweekendincuda_tpu/ops/replay.py::derive_replay``
-and of the bounce that the Pallas replay kernels compute
-(``ops/pallas_replay.py::_make_bounce``).  A winner tape (one primitive id
-per bounce, from the trace K2) fixes the discrete path; the replay
-recomputes the radiance with those winners: per bounce one read of the
-winner's row of the merged replay table, a re-intersection of that one
-primitive, media t, textures, emission and scatter.  Gradients flow to the
-table (and through `derive_replay` to the scene leaves), to the primary
-rays and to the background.
+A winner tape (one primitive id per bounce) fixes the discrete path; the
+replay recomputes the radiance with those winners: per bounce one read of
+the winner's row of a merged table, a re-intersection of that one
+primitive, media t, textures, emission and scatter.  Pathwise gradients
+hold the discrete path fixed, so they flow through the replay alone: to
+the scene leaves, the primary rays and the background.  The module has two
+replays of such a tape.
+
+**The XLA taped replay** (port of ``raytracinginoneweekendincuda_tpu/ops/
+replay.py``: `taped_record`, `_u_med`, `generate_tape`, `replay`,
+`trace_taped`), in the scene's dtype (f32 or f64): `generate_tape` runs the
+integrator's search once and records each bounce's winner as a GLOBAL id
+(spheres [0, S), quads [S, S+Q), media S+Q+m; -1 miss); `replay`
+re-intersects the winner from `taped_rows` (one row gather a bounce) and
+runs the integrator's shade / accumulate tail
+(`integrator.advance_from_record`); `trace_taped` is the two together,
+the tape without gradients, a drop-in for
+``integrator.trace(differentiable=True)``.  `taped_rows` builds from
+``hit.derive``'s tensors in their dtype what `derive_replay` builds in f32
+for the kernels' table.  Its math is
+``hit.assemble_record``'s, expression for expression (libm acos / atan2).
+
+**The mega2 replay** (port of ``derive_replay`` and of the bounce that the
+Pallas replay kernels compute, ``ops/pallas_replay.py::_make_bounce``),
+f32: the tape comes from the trace K2 (``mega2.mega2_tapes``), the table
+from `replay_table`.
 
 ``replay_plain`` is the plain PyTorch version of kernel K3 (``csrc/
 replay_fwd.cu``), batched over lanes, in ``_make_bounce``'s op order: the
@@ -17,7 +34,8 @@ a reciprocal multiply).  Torch autograd through it is the plain version of
 kernel K4 (``csrc/replay_bwd.cu``).  ``ops/replay_cuda.replay`` dispatches
 between them.
 
-Merged table columns (REP_COLS = 27; sphere rows | quad rows):
+Merged table columns (REP_COLS = 27, both replays; sphere rows | quad
+rows):
 
     0:3   c0            | n_unit
     3:6   dc            | vxw
@@ -28,25 +46,30 @@ Merged table columns (REP_COLS = 27; sphere rows | quad rows):
     13    kind   14 fuzz   15 ior   16 tex_kind   17:20 tex c0
     20:23 tex c1   23 inv_scale   24 noise scale   25 noise id   26 image id
 
-Medium winners read an appended row whose geometry columns are zero and
-whose material columns are the medium's isotropic material (its albedo is
-trainable).
+In `replay_table`, medium winners read an appended row whose geometry
+columns are zero and whose material columns are the medium's isotropic
+material (its albedo is trainable).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..core import rng
+from ..core import vecmath as vm
 from ..core.samplers import sqrt_f32
 from ..scene.compiler import (
     MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_ISOTROPIC, MAT_LAMBERTIAN,
     MAT_METAL, MED_BOX, TEX_CHECKER, TEX_IMAGE, TEX_NOISE, SceneArrays,
     SceneMeta,
 )
+from . import hit as hit_ops
+from .hit import HitRecord
+from .integrator import _u_med, advance_from_record
 from .mega2 import _atan2_poly, _perlin_turb
 
 REP_COLS = 27
@@ -218,6 +241,210 @@ def replay_table(scene: SceneArrays, meta: SceneMeta, tex, *,
         n_noise=max(meta.n_noise, 1) if meta.has_noise else 1,
         has_checker=bool(meta.has_checker), has_noise=bool(meta.has_noise),
         has_image=bool(meta.has_image))
+
+
+# --------------------------------------------------------------------------
+# the XLA taped replay, in the scene's dtype
+
+
+def taped_rows(scene: SceneArrays, meta: SceneMeta, der: hit_ops.Derived):
+    """The XLA replay's merged rows [S+Q, 27] keyed by global id (the
+    layout above) and the media's material rows [M, 14] (None without
+    media), gathered from `hit.derive`'s tables ``der`` of a tensor scene
+    in its dtype: the JAX package's ``derive_replay``."""
+    sph, mat = der.sph_tab, der.mat_tab
+    rows = [torch.cat([sph[:, 0:11], torch.zeros_like(sph[:, 11:]),
+                       sph[:, 11:], mat[scene.sph_mat]], dim=1)]
+    if scene.quad_q.shape[0] > 0:
+        rows.append(torch.cat([der.quad_tab, mat[scene.quad_mat]], dim=1))
+    med_rows = mat[scene.med_mat] if meta.n_media > 0 else None
+    return torch.cat(rows, dim=0), med_rows
+
+
+def taped_record(scene: SceneArrays, meta: SceneMeta, rep, med_rows, o, d,
+                 time, t_min, u_med, w) -> HitRecord:
+    """HitRecord for a KNOWN winner ``w`` [B] (global id, -1 = miss).
+
+    Re-intersects only the winner from its row of ``rep`` (`taped_rows`,
+    one gather).  The tape is authoritative: the winner's t is recomputed
+    with the NaN-safe guards, its hit / miss status comes from ``w``
+    alone.  Sphere.h:29-58 (direct ``oc`` form) / Quad.h:52-98 (d_plane
+    recomputed from the row) / ConstantMedium.h:85-93, expression for
+    expression the JAX package's ``taped_record`` (``hit.assemble_record``
+    for the record)."""
+    S = scene.sph_c0.shape[0]
+    Q = scene.quad_q.shape[0]
+    NP = S + Q
+    w = w.to(torch.int64)
+    hit = w >= 0
+    kind = torch.where(w < S, 0, torch.where(w < NP, 1, 2))
+    row = rep.index_select(0, torch.clamp(w, 0, NP - 1))    # see hit.py
+
+    # ---- sphere re-intersection (Sphere.h:29-58, direct oc form)
+    frac = (time - row[:, 6]) * row[:, 7]
+    center = row[:, 0:3] + frac[:, None] * row[:, 3:6]
+    rad = row[:, 8]
+    oc = o - center
+    a = vm.dot(d, d)
+    b = vm.dot(oc, d)
+    c = vm.dot(oc, oc) - rad * rad
+    disc = b * b - a * c
+    pos = disc > 0.0
+    sq = vm.sqrt_exact(torch.where(pos, disc, 1.0))   # NaN-safe when masked
+    inv_a = 1.0 / a
+    root1 = (-b - sq) * inv_a
+    root2 = (-b + sq) * inv_a
+    t_sph = torch.where(root1 > t_min, root1, root2)
+
+    # ---- quad re-intersection (Quad.h:52-64)
+    if Q > 0:
+        n_u = row[:, 0:3]
+        d_plane = vm.dot(n_u, row[:, 9:12])
+        denom = vm.dot(d, n_u)
+        dok = torch.abs(denom) >= hit_ops.QUAD_PARALLEL_EPS
+        t_quad = (d_plane - vm.dot(o, n_u)) / torch.where(dok, denom, 1.0)
+    else:
+        t_quad = torch.zeros_like(t_sph)
+
+    t = torch.where(kind == 0, t_sph, t_quad)
+    i_m = torch.zeros_like(w)
+    if meta.n_media > 0:
+        # every medium's candidate (the tape generator's arithmetic, so
+        # the same t), then the winner's column
+        i_m = torch.clamp(w - NP, 0, meta.n_media - 1)
+        t_m = hit_ops.medium_candidates(scene, o, d, t_min, u_med)
+        t = torch.where(kind == 2, t_m.gather(1, i_m[:, None])[:, 0], t)
+    t = torch.where(hit, t, hit_ops.BIG)
+
+    # ---- record assembly (hit.assemble_record, merged row)
+    hit_rec = t < hit_ops.BIG * 0.5
+    t_safe = torch.where(hit_rec, t, 1.0)
+    p = o + t_safe[:, None] * d
+
+    # sphere normal / uv (Sphere.h:40-58 + GetSphereUV:74-81)
+    n_out_s = (p - center) / torch.where(rad[:, None] != 0, rad[:, None],
+                                         1.0)
+    cth, sth = row[:, 9], row[:, 10]
+    nx, ny, nz = n_out_s[..., 0], n_out_s[..., 1], n_out_s[..., 2]
+    ox_n = cth * nx - sth * nz
+    oz_n = sth * nx + cth * nz
+    ny_c = torch.clamp(-ny, -1.0, 1.0)
+    interior = torch.abs(ny_c) < 1.0
+    theta_uv = torch.where(
+        interior, torch.arccos(torch.where(interior, ny_c, 0.0)),
+        torch.where(ny_c > 0, 0.0, torch.full_like(ny_c, math.pi)))
+    atan_ok = (torch.abs(ox_n) + torch.abs(oz_n)) > 0.0
+    phi_uv = torch.where(
+        atan_ok, torch.arctan2(torch.where(atan_ok, -oz_n, 0.0),
+                               torch.where(atan_ok, ox_n, 1.0)),
+        0.0) + math.pi
+    u_s = phi_uv / (2.0 * math.pi)
+    v_s = theta_uv / math.pi
+
+    # quad normal / uv (Quad.h:76-98)
+    if Q > 0:
+        pq = p - row[:, 9:12]
+        alpha = (pq * row[:, 3:6]).sum(-1)
+        beta = (pq * row[:, 6:9]).sum(-1)
+    else:
+        alpha = beta = torch.zeros_like(u_s)
+
+    is_sph = kind == 0
+    n_out = torch.where(is_sph[:, None], n_out_s, row[:, 0:3])
+    uu = torch.where(is_sph, u_s, alpha)
+    vv = torch.where(is_sph, v_s, beta)
+    mat = row[:, 12]
+    mrow = row[:, 13:]
+    if meta.n_media > 0:
+        is_med = kind == 2
+        med_normal = torch.zeros_like(n_out)
+        med_normal[:, 0] = 1.0
+        n_out = torch.where(is_med[:, None], med_normal, n_out)
+        uu = torch.where(is_med, 0.0, uu)
+        vv = torch.where(is_med, 0.0, vv)
+        mat = torch.where(is_med, scene.med_mat[i_m].to(mat.dtype), mat)
+        mrow = torch.where(is_med[:, None], med_rows.index_select(0, i_m),
+                           mrow)
+
+    front = vm.dot(d, n_out) < 0.0
+    normal = torch.where(front[:, None], n_out, -n_out)
+    if meta.n_media > 0:
+        front = torch.where(is_med, True, front)
+        normal = torch.where(is_med[:, None], n_out, normal)
+
+    return HitRecord(t=t, p=p, normal=normal, u=uu, v=vv, front=front,
+                     mat=mat.to(torch.int64), hit=hit_rec, mrow=mrow)
+
+
+def _start(o):
+    """The bounce loop's initial throughput, radiance and alive mask."""
+    B = o.shape[0]
+    return (torch.ones((B, 3), dtype=o.dtype, device=o.device),
+            torch.zeros((B, 3), dtype=o.dtype, device=o.device),
+            torch.ones(B, dtype=torch.bool, device=o.device))
+
+
+def generate_tape(scene: SceneArrays, meta: SceneMeta, o, d, time, pix_ctr,
+                  sample, *, max_bounces: int, t_min: float,
+                  hit_winner_fn=None):
+    """Run the bounce loop once (all ``max_bounces``, no early exit) and
+    record the winners.
+
+    Returns ``(tape [max_bounces, B] int32, radiance [B, 3])``; the
+    radiance is the search's own, for cross-checks.
+    ``hit_winner_fn(o, d, time, t_min, u_med) -> (HitRecord, w)`` swaps the
+    winner-producing engine (default: ``hit.closest_hit_winner`` over a
+    tensor scene).  Differentiates like any torch code: callers that want
+    only the tape run it under ``torch.no_grad()`` (`trace_taped`)."""
+    if hit_winner_fn is None:
+        der = hit_ops.derive(scene)
+
+        def hit_winner_fn(o, d, time, tm, u_med):
+            return hit_ops.closest_hit_winner(scene, meta, der, o, d, time,
+                                              tm, u_med)
+
+    thr, acc, alive = _start(o)
+    ws = []
+    for bounce in range(max_bounces):
+        u_med = _u_med(meta, pix_ctr, sample, bounce, o.dtype)
+        rec, w = hit_winner_fn(o, d, time, t_min, u_med)
+        ws.append(torch.where(alive, w, -1).to(torch.int32))
+        o, d, thr, acc, alive = advance_from_record(
+            scene, meta, rec, o, d, thr, acc, alive, pix_ctr, sample, bounce)
+    return torch.stack(ws), acc
+
+
+def replay(scene: SceneArrays, meta: SceneMeta, tape, o, d, time, pix_ctr,
+           sample, *, max_bounces: int, t_min: float):
+    """Radiance [B, 3] with the winners of each bounce fixed by ``tape``
+    [max_bounces, B] (global ids): the differentiable leg of the taped
+    path, O(1) work a segment.  Differentiable in the tensor scene's
+    leaves and in ``o``, ``d`` and ``time``."""
+    rep, med_rows = taped_rows(scene, meta, hit_ops.derive(scene))
+    thr, acc, alive = _start(o)
+    for bounce in range(max_bounces):
+        u_med = _u_med(meta, pix_ctr, sample, bounce, o.dtype)
+        rec = taped_record(scene, meta, rep, med_rows, o, d, time, t_min,
+                           u_med, tape[bounce])
+        o, d, thr, acc, alive = advance_from_record(
+            scene, meta, rec, o, d, thr, acc, alive, pix_ctr, sample, bounce)
+    return acc
+
+
+def trace_taped(scene: SceneArrays, meta: SceneMeta, o, d, time, pix_ctr,
+                sample, *, max_bounces: int, t_min: float,
+                hit_winner_fn=None):
+    """Differentiable radiance, a drop-in for
+    ``integrator.trace(differentiable=True)``: the tape once, under
+    ``torch.no_grad()`` on detached rays (JAX's ``stop_gradient``: autograd
+    keeps none of the search's [B, S] tensors), then the replay."""
+    with torch.no_grad():
+        tape, _ = generate_tape(
+            scene, meta, o.detach(), d.detach(), time.detach(), pix_ctr,
+            sample, max_bounces=max_bounces, t_min=t_min,
+            hit_winner_fn=hit_winner_fn)
+    return replay(scene, meta, tape, o, d, time, pix_ctr, sample,
+                  max_bounces=max_bounces, t_min=t_min)
 
 
 # --------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from raytracinginoneweekendincuda_torch.ops.raygen import (
 )
 from raytracinginoneweekendincuda_torch.ops.render import finalize
 from raytracinginoneweekendincuda_torch.models import scenes
+from raytracinginoneweekendincuda_torch.parallel import train
 from raytracinginoneweekendincuda_torch.scene import api
 from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
 from raytracinginoneweekendincuda_torch.tools import (
@@ -701,3 +702,32 @@ def test_probe_mosaic_matches_plain_on_card(name, inputs, dev):
     (probe_mosaic, [])], ids=["probe_pair", "probe_intmul", "probe_mosaic"])
 def test_probe_tools_run_on_card(tool, argv, dev):
     assert tool.main(argv)
+
+
+def test_general_step_matches_cpu_on_card(dev):
+    """One step of ``make_train_step`` (engines taped and scan) on the card
+    and on the CPU from the same parameters, scene 4 at 12x8@2, K 4, Adam
+    lr 0.05: the loss within rel 1e-5 and every leaf after the step within
+    rtol 1e-5 (chip_smoke.py phase 15's gate (b)4)."""
+    scene, meta = compile_scene(scenes.build_scene(4), 12, 8,
+                                dtype=np.float32)
+    start = scene._replace(tex_c0=np.clip(
+        np.asarray(scene.tex_c0) * 0.5 + 0.2, 0.0, 1.0).astype(np.float32))
+    cfg = RenderConfig(width=12, height=8, samples_per_pixel=2,
+                       max_bounces=4)
+    target = np.random.default_rng(4).random((96, 3)).astype(np.float32)
+    for engine in ("taped", "scan"):
+        out = []
+        for where in ("cpu", dev):
+            state = train.init_state(
+                start, lambda ps: torch.optim.Adam(ps, lr=0.05),
+                device=where)
+            step = train.make_train_step(start, meta, cfg, engine=engine)
+            state, loss = step(state, start, np.arange(96),
+                               torch.as_tensor(target, device=where))
+            out.append((float(loss), [p.detach().cpu() for p in
+                                      train.parameter_list(state.params)]))
+        (l_c, p_c), (l_g, p_g) = out
+        np.testing.assert_allclose(l_g, l_c, rtol=1e-5, err_msg=engine)
+        for g, c in zip(p_g, p_c):
+            torch.testing.assert_close(g, c, rtol=1e-5, atol=0)

@@ -206,15 +206,18 @@ def test_render_unported_engine_raises():
 
 
 @pytest.mark.parametrize("engine", ENGINES)
-def test_render_differentiable_raises(engine):
-    """The scan-form loop that ``differentiable=True`` asks for is not
-    ported: ``render`` refuses it rather than running the other loop."""
+def test_render_differentiable_matches(engine):
+    """``differentiable=True`` runs the scan-form loop on ``bruteforce``,
+    whose frame equals the ``while`` form's; the other engines have one
+    loop each and ignore the flag, as in the JAX package."""
     scene, meta = compile_scene(scenes.build_scene(4), 16, 8,
                                 dtype=np.float32)
     cfg = RenderConfig(width=16, height=8, samples_per_pixel=1,
-                       engine=engine, differentiable=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render(scene, meta, cfg, device="cpu")
+                       engine=engine)
+    want = render(scene, meta, cfg, device="cpu")
+    got = render(scene, meta, cfg.with_(differentiable=True), device="cpu")
+    assert got.shape == (8, 16, 3) and got.any()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_render_u8_and_orientation():
