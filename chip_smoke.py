@@ -7,14 +7,16 @@ Builds the port's CUDA kernels from the sources in this checkout -- K1
 (``csrc/replay_fwd.cu``), K4 (``csrc/replay_bwd.cu``), K5
 (``csrc/mega_bounces.cu``), K6 (``csrc/closest_geo.cu``) and the probes
 P1-P3 (``csrc/probe_pair.cu``, ``probe_intmul.cu``, ``probe_mosaic.cu``),
-one nvcc each, all started together -- and drives the port's five paths:
+one nvcc each, all started together -- and drives the port's six paths:
 the render (the CLI's ``ops/render.render``, engine ``mega2``, at the
 reference's headline config, and on a world large enough for the chunk
 cull), the training step
 (``parallel/train.make_train_step_mega2``), the XLA-family engines
 (``render`` with ``wavefront_pallas`` and ``mega``), the probe tools
 (``tools/probe_*.main``) and the general train step
-(``parallel/train.make_train_step``, plain PyTorch, held against K2-K4),
+(``parallel/train.make_train_step``, plain PyTorch, held against K2-K4)
+and the BVH engines (``render`` with ``bvh`` and ``wavefront_bvh``, plain
+PyTorch, held against the brute-force engines and the f64 oracle),
 holding every kernel against its plain PyTorch version.  Phases:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -134,7 +136,34 @@ holding every kernel against its plain PyTorch version.  Phases:
     1e-5; (b)5 ``render`` with ``differentiable=True`` (``bruteforce``,
     scene 4 at 64x32@4) equal to the ``while`` form's frame on the card;
     (b)6 ``examples/recover_geometry.main`` on the card passes its own
-    assert; the phase's seconds.
+    assert; (e) one more step of each engine from the start's parameters,
+    its loss, gradients and leaves after Adam bit-identical to (a)'s
+    warm-up step (a gate: the winner reads' backward, ``hit.row_sum``,
+    adds in an order fixed by the data), the taped step timed with the
+    winner reads as the parent's ``index_select``, as ``read_rows``, in
+    turns (P C C P C P; a gate: the median backward by CUDA events grows
+    by at most 10% of the median parent step; the host-clock ratio
+    printed), and as
+    ``index_select`` under deterministic algorithms from the forward's end
+    to the backward's; the mega2 step twice from the start's parameters
+    and a ``wavefront_pallas`` frame of scene 0 at 1440x720@10 twice,
+    their equality reported, not gated; the phase's seconds;
+16. the BVH engines (plain PyTorch, no kernel): the numpy build's time
+    on scene 9 and ``sphere_field()``; (a) ``bvh_engine.traverse`` on
+    phase 12's scene-9 pool (131,072 camera rays) on the card against
+    its CPU run (``prim`` equal on at least 99.9% of lanes, ``t`` within
+    rel 1e-6), its steps and ms a call beside K6's on the same rays; (b)
+    scenes 0, 4 and 9 at 32x18@2, 8 bounces: ``bvh`` against
+    ``bruteforce`` and ``wavefront_bvh`` against ``wavefront`` in f64 (at
+    most 2 pixels above 1e-9), ``wavefront_bvh`` against ``wavefront`` in
+    f32 (phase 12's share of pixels above 1e-4, the mean printed), each
+    frame timed; (c) ``bvh`` in f64, 50 bounces, against
+    ``testing/oracle.Oracle`` at 96x54@2 on scenes 0 and 3
+    (``assert_images_close``'s defaults); (d) ``wavefront_bvh`` timed
+    against ``wavefront_pallas`` on scene 9 and against ``render()``'s
+    mega2 on ``sphere_field()`` at 96x54@2, 8 bounces, with its
+    iterations, traversal steps an iteration, launches and busy share
+    (profiler), each frame against the other engine's as in (b).
 
 Prints the kernel record and the card on lines of their own, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, before that
@@ -167,8 +196,14 @@ from raytracinginoneweekendincuda_torch.models.scenes import (
     SCENE_NAMES, build_scene, sphere_field,
 )
 from raytracinginoneweekendincuda_torch.scene import api
+from raytracinginoneweekendincuda_torch.scene.bvh import build_scene_bvh
 from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
+from raytracinginoneweekendincuda_torch.testing.compare import (
+    assert_images_close,
+)
+from raytracinginoneweekendincuda_torch.testing.oracle import Oracle
 from raytracinginoneweekendincuda_torch.utils.config import RenderConfig
+from raytracinginoneweekendincuda_torch.ops import bvh_engine
 from raytracinginoneweekendincuda_torch.ops import hit, integrator, mega
 from raytracinginoneweekendincuda_torch.ops import mega2, pallas_hit
 from raytracinginoneweekendincuda_torch.ops import replay as rp
@@ -211,6 +246,18 @@ REPLAY = (64, 32, 1, 8)   # every scene, K3 / K4 against the plain version
 TRAIN = (640, 360, 8, 8)  # the training step: width, height, spp, K
 GENERAL_SMALL = (4, 12, 8, 2, 4)   # phase 15 (b)4: scene, w, h, spp, K
 DIFF_RENDER = (4, 64, 32, 4)       # phase 15 (b)5: scene, w, h, spp
+# Phase 16.  A BVH traversal step is ~130 small PyTorch launches, and an
+# engine runs one traversal a bounce over the whole batch or pool, so its
+# frames are launch-bound: at the reference's 50 bounces (c)'s scene-0
+# frame alone takes 84 traversals.  (b) and (d) cut the depth to BVH_DEPTH
+# bounces to keep the phase near two minutes; (c), the oracle's parity,
+# keeps 50.
+BVH_FRAME = (32, 18, 2)   # phase 16 (b): every engine pair's frame
+BVH_SCENES = (0, 4, 9)    # and its scenes
+BVH_DEPTH = 8             # (b) and (d): bounces
+BVH_ORACLE = (96, 54, 2)  # phase 16 (c): bvh against the oracle
+ORACLE_SCENES = (0, 3)
+BVH_TIMED = (96, 54, 2)   # phase 16 (d): the timed wavefront_bvh frames
 TAPE_AGREE = 0.97         # XLA tape vs K2: share of identical lanes
                           # (tests/test_replay.py's bound: f32 ties)
 MAX_DIFF_LANES = 0.001    # K2: at most 0.1% of lanes may differ
@@ -326,7 +373,8 @@ def image_of(fb: torch.Tensor, spp: int) -> np.ndarray:
 
 
 def compare(k1: np.ndarray, plain: np.ndarray, what: str,
-            unit: str = "pixels", max_frac: float = MAX_FRAC_ABOVE) -> dict:
+            unit: str = "pixels", max_frac: float = MAX_FRAC_ABOVE,
+            max_mean: float = MAX_MEAN) -> dict:
     """Per-row comparison of a kernel's [P, C] image (or radiance, or ray
     state) with its plain version's, checked against the bounds above."""
     diff = np.abs(k1.astype(np.float64) - plain.astype(np.float64))
@@ -341,7 +389,7 @@ def compare(k1: np.ndarray, plain: np.ndarray, what: str,
     if not np.isfinite(k1).all():
         raise AssertionError(f"{what}: the kernel produced non-finite values")
     if stats["above_1e-4"] > max_frac * stats["pixels"] \
-            or stats["mean_abs"] >= MAX_MEAN:
+            or stats["mean_abs"] >= max_mean:
         raise AssertionError(f"{what}: the kernel disagrees with the plain "
                              f"version")
     return stats
@@ -1697,7 +1745,7 @@ def phase_general_step(dev, card: str, mega2_step) -> None:
                 pallas_hit.closest_geo_cuda)
     for c in counters:
         c.launches = 0
-    first = {}
+    first, ref = {}, {}
     for engine, timed in (("taped", 3), ("scan", 1)):
         state, step = general_step(start, meta, cfg, engine, dev)
         torch.cuda.synchronize()
@@ -1706,6 +1754,7 @@ def phase_general_step(dev, card: str, mega2_step) -> None:
         state, loss = step(state, start, pix, target)            # warm-up
         torch.cuda.synchronize()
         first[engine] = (float(loss), grads_of(state.params))
+        ref[engine] = step_record(state, loss)
         box, walls, split, losses = [state], [], {}, [float(loss)]
         with_rest = lambda st, p, t, mark=None: step(st, start, p, t,
                                                      mark=mark)
@@ -1746,6 +1795,8 @@ def phase_general_step(dev, card: str, mega2_step) -> None:
     print(f"  the port's kernels launched by the steps: "
           f"{sum(c.launches for c in counters)} (plain PyTorch path)",
           flush=True)
+    phase_repeat(dev, card, start, meta, cfg, pix, target, ref)
+    del ref
 
     # (b)1 taped against scan, one step each from the same parameters, the
     # gradients before the update.  In f32 the two differ on this scene by
@@ -1880,6 +1931,295 @@ def phase_general_step(dev, card: str, mega2_step) -> None:
     print(f"  (b)6 examples/recover_geometry on the card: {summary[-1]} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def leaves_of(params) -> list:
+    """Copies of a parameter dict's leaves, in `train.parameter_list`
+    order."""
+    return [p.detach().clone() for p in train.parameter_list(params)]
+
+
+def step_record(state, loss) -> tuple:
+    """(loss, gradients, leaves after the update) of a step just taken."""
+    return float(loss), grads_of(state.params), leaves_of(state.params)
+
+
+def same_step(a: tuple, b: tuple) -> bool:
+    """Two `step_record`s bit for bit equal."""
+    return a[0] == b[0] and all(torch.equal(x, y) for x, y in
+                                zip(a[1] + a[2], b[1] + b[2]))
+
+
+@contextlib.contextmanager
+def row_reads(read):
+    """The winner reads of ops/hit.py and ops/replay.py through ``read``
+    (``hit.read_rows``'s signature) while inside."""
+    real = hit.read_rows
+    hit.read_rows = read
+    try:
+        yield
+    finally:
+        hit.read_rows = real
+
+
+def index_select_rows(table, idx):
+    """The winner read as the parent commit has it: ``index_select``,
+    whose backward adds with ``index_add_``'s atomics."""
+    return table.index_select(0, idx)
+
+
+def taped_step_ms(start, meta, cfg, pix, target, dev,
+                  deterministic_backward: bool = False) -> tuple:
+    """(host ms, backward ms by CUDA events) of one taped step from the
+    start's parameters; ``deterministic_backward`` turns on
+    ``torch.use_deterministic_algorithms`` from the forward's end to the
+    backward's."""
+    state, step = general_step(start, meta, cfg, "taped", dev)
+
+    def with_rest(st, p, t, mark=None):
+        def m(name):
+            mark(name)
+            if deterministic_backward:
+                torch.use_deterministic_algorithms(name == "forward",
+                                                   warn_only=True)
+        return step(st, start, p, t, mark=m)
+
+    t0 = time.perf_counter()
+    try:
+        phases, _ = step_phase_ms(with_rest, [state], pix, target)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return (time.perf_counter() - t0) * 1e3, phases["backward"]
+
+
+def phase_repeat(dev, card: str, start, meta, cfg, pix, target,
+                 ref: dict) -> None:
+    """Phase 15 (e): the general step's repeatability (a gate), the row
+    read's cost against the parent's and the deterministic-algorithms
+    option, and the mega2 step and a wavefront_pallas frame run twice
+    (reported only)."""
+    for engine in ("taped", "scan"):
+        state, step = general_step(start, meta, cfg, engine, dev)
+        state, loss = step(state, start, pix, target)
+        same = same_step(step_record(state, loss), ref[engine])
+        print(f"  (e) {engine} step again from the start's parameters: "
+              f"loss, gradients and leaves after Adam "
+              f"{'bit-identical' if same else 'DIFFER'} to phase (a)'s "
+              f"warm-up step", flush=True)
+        if not same:
+            raise AssertionError(f"{engine}: the general step does not "
+                                 f"repeat")
+        del state, step
+
+    runs = collections.defaultdict(list)
+    parent = ("index_select", index_select_rows, False)
+    change = ("read_rows", hit.read_rows, False)
+    order = (parent, change, change, parent, change, parent,
+             ("index_select, deterministic backward", index_select_rows,
+              True))
+    for name, read, det in order:
+        with row_reads(read):
+            runs[name].append(taped_step_ms(start, meta, cfg, pix, target,
+                                            dev, det))
+    for name, ms in runs.items():
+        print(f"  (e) taped step, winner reads by {name}: " + ", ".join(
+            f"{a:.1f} ms (backward {b:.1f})" for a, b in ms)
+            + f" on {card}", flush=True)
+    # The read changes only the backward (the forward is index_select in
+    # both), so its cost is the backward's growth by CUDA events, gated at
+    # 10% of the parent's step.  The steps' host clocks are printed beside
+    # it: two steps of the same code differ by up to ~13% on the card's
+    # host (the tape's host syncs and launches), more than the read costs
+    median = lambda name, k: float(np.median([r[k] for r in runs[name]]))
+    step_p = median("index_select", 0)
+    cost = (median("read_rows", 1) - median("index_select", 1)) / step_p
+    print(f"  (e) read_rows against index_select, taped step (P C C P C P, "
+          f"medians): backward +{cost:.4f} of the parent's step (CUDA "
+          f"events); host clock {median('read_rows', 0) / step_p:.4f}x",
+          flush=True)
+    if cost > 0.10:
+        raise AssertionError("the repeatable row read costs more than 10% "
+                             "of the taped step")
+
+    recs = []
+    m2 = train.make_train_step_mega2(start, meta, cfg)
+    for _ in range(2):
+        state = train.init_state(
+            start, lambda ps: torch.optim.Adam(ps, lr=1e-2), device=dev)
+        state, loss = m2(state, pix, target)
+        recs.append(step_record(state, loss))
+    same = same_step(*recs)
+    rel = max(leaf_rel_l2(recs[0][1], recs[1][1]))
+    print(f"  (e) mega2 step twice from the start's parameters (measured, "
+          f"not gated): {'bit-identical' if same else 'differ'}; loss "
+          f"{recs[0][0]!r} / {recs[1][0]!r}, gradients' worst leaf rel-L2 "
+          f"{rel:.2e}", flush=True)
+    del recs, m2, state
+
+    w, h, spp = MAIN
+    scene, meta0, cfg0, _ = compile_cfg(0, w, h, spp)
+    wcfg = cfg0.with_(engine="wavefront_pallas")
+    frames = [render(scene, meta0, wcfg, device=dev, gamma=False)
+              for _ in range(2)]
+    differ = int((frames[0] != frames[1]).any(-1).sum())
+    print(f"  (e) wavefront_pallas frame twice, scene 0 at {w}x{h}@{spp} "
+          f"(measured, not gated): {differ} of {w * h} pixels differ, max "
+          f"|diff| {float(np.abs(frames[0] - frames[1]).max()):.3e}",
+          flush=True)
+
+
+def frames_close(img: np.ndarray, ref: np.ndarray, what: str) -> None:
+    """The f64 BVH contract: at most 2 pixels above 1e-9
+    (tests/test_torch_bvh.py)."""
+    diff = np.abs(img - ref).max(-1)
+    n = int((diff > 1e-9).sum())
+    print(f"  {what}: {n} of {diff.size} pixels above 1e-9 (max "
+          f"{float(diff.max()):.2e})", flush=True)
+    if n > 2 or not img.any():
+        raise AssertionError(f"{what}: the BVH frame disagrees")
+
+
+def bvh_counts(fn) -> tuple:
+    """(seconds, result, traversal calls, traversal steps) of one call of
+    ``fn``, ending in a sync."""
+    hit_fn = bvh_engine.bvh_closest_hit
+    calls, steps = hit_fn.calls, hit_fn.steps
+    sec, out = once_s(fn)
+    return sec, out, hit_fn.calls - calls, hit_fn.steps - steps
+
+
+def engines_agree(img: np.ndarray, other: np.ndarray, what: str) -> None:
+    """Two engines' f32 frames of one small frame: phase 12's pixel gate,
+    at most MAX_FRAC_PLAIN_WF of the pixels above 1e-4.  The BVH tests
+    spheres in the direct form, the brute-force engine in the
+    coefficient form, and a sample whose winner flips takes another path;
+    on a few hundred pixels at 2 spp one such path sets the mean, so the
+    mean is printed, not gated."""
+    flat = lambda a: np.ascontiguousarray(a).reshape(-1, 3)
+    compare(flat(img), flat(other), what, max_frac=MAX_FRAC_PLAIN_WF,
+            max_mean=float("inf"))
+
+
+def phase_bvh(dev, card: str) -> None:
+    """Phase 16: the BVH engines (module notes)."""
+    t_phase = time.perf_counter()
+
+    # host builds (the JAX package's g++ builder is not ported)
+    for name, desc in (("scene 9", scene_desc(9)[0]),
+                       ("sphere_field()", sphere_field())):
+        sc, _ = compile_scene(desc, 8, 8, dtype=np.float32)
+        sec, bvh = once_s(lambda: build_scene_bvh(sc))
+        print(f"  (a) numpy BVH build, {name}: {len(bvh.prim)} nodes in "
+              f"{sec:.3f} s on the card's host", flush=True)
+
+    # (a) the traversal on the card against its CPU run: phase 12's scene-9
+    # pool
+    w, h, spp = MAIN
+    scene, meta, cfg, _ = compile_cfg(9, w, h, spp)
+    P = min(cfg.rays_per_batch, w * h * spp)
+    rays, sph, quad = first_pool(scene, w, h, P, cfg.seed, dev)
+    S = scene.sph_c0.shape[0]
+    bvh = build_scene_bvh(scene)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        tabs = bvh_engine.pack_tables(hit.scene_tensors(scene, where), bvh)
+        r = rays.to(where)
+        go = lambda: bvh_engine.traverse(tabs, S, r[:, 0:3], r[:, 3:6],
+                                         r[:, 6], cfg.t_min)
+        if where == dev:
+            go()                                   # warm-up
+        sec, res = once_s(go)
+        out.append((sec, *res))
+    (sec, t, p, steps), (sec_c, t_c, p_c, _) = out
+    t, p = t.cpu(), p.cpu()
+    same = p == p_c
+    rel = float(((t - t_c).abs() / t_c.abs())[same & (p >= 0)].max())
+    k6_ms = device_ms(lambda: pallas_hit.closest_geo_cuda(
+        rays, sph, quad, cfg.t_min), dev)
+    print(f"  (a) bvh_closest_hit's traversal, scene 9's first pool ({P} "
+          f"rays): prim equal on {float(same.float().mean()):.6f} of lanes, "
+          f"t rel {rel:.2e}; {steps} steps, {sec * 1e3:.1f} ms a call "
+          f"({sec * 1e3 / steps:.3f} ms a step; CPU {sec_c:.2f} s) against "
+          f"K6's {k6_ms:.4f} ms on the same rays, on {card}", flush=True)
+    if float(same.float().mean()) < 1 - MAX_DIFF_LANES or rel > 1e-6:
+        raise AssertionError("the traversal on the card differs from the "
+                             "CPU's")
+    del rays, sph, quad, out, t, p, t_c, p_c
+
+    # (b) the BVH engines against their brute-force twins, f64 and f32
+    w, h, spp = BVH_FRAME
+    for sid in BVH_SCENES:
+        desc = scene_desc(sid)[0]
+        for dt in (np.float64, np.float32):
+            sc, mt = compile_scene(desc, w, h, dtype=dt)
+            cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                               max_bounces=BVH_DEPTH,
+                               dtype=np.dtype(dt).name)
+            img, secs = {}, {}
+            for e in (("wavefront", "wavefront_bvh") if dt == np.float32
+                      else ("bruteforce", "bvh", "wavefront",
+                            "wavefront_bvh")):
+                secs[e], img[e] = once_s(lambda: render(
+                    sc, mt, cfg.with_(engine=e), device=dev))
+            print(f"  (b) scene {sid} at {w}x{h}@{spp}, {BVH_DEPTH} "
+                  f"bounces, {np.dtype(dt).name}, seconds a frame: "
+                  + ", ".join(f"{e} {v:.2f}" for e, v in secs.items()),
+                  flush=True)
+            if dt == np.float64:
+                frames_close(img["bvh"], img["bruteforce"],
+                             f"(b) scene {sid}, f64, bvh vs bruteforce")
+                frames_close(img["wavefront_bvh"], img["wavefront"],
+                             f"(b) scene {sid}, f64, wavefront_bvh vs "
+                             f"wavefront")
+            else:
+                engines_agree(img["wavefront_bvh"], img["wavefront"],
+                              f"(b) scene {sid}, f32, wavefront_bvh vs "
+                              f"wavefront")
+    print(f"  (b) {time.perf_counter() - t_phase:.1f} s so far", flush=True)
+
+    # (c) bvh at f64 against the oracle
+    w, h, spp = BVH_ORACLE
+    for sid in ORACLE_SCENES:
+        sc, mt = compile_scene(scene_desc(sid)[0], w, h, dtype=np.float64)
+        cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                           dtype="float64", engine="bvh")
+        sec, img, calls, steps = bvh_counts(
+            lambda: render(sc, mt, cfg, device=dev))
+        o_sec, want = once_s(lambda: Oracle(sc, mt, w, h, cfg.seed)
+                             .render(spp))
+        frac, mean, worst = assert_images_close(
+            img, want, label=f"scene {sid} bvh vs oracle")
+        print(f"  (c) scene {sid} at {w}x{h}@{spp}, bvh f64 on the card vs "
+              f"the oracle: {frac:.4%} of pixels within 1e-9, mean "
+              f"{mean:.2e}, worst {worst:.2e}; bvh {sec:.2f} s ({calls} "
+              f"traversals, {steps} steps), oracle {o_sec:.2f} s",
+              flush=True)
+
+    # (d) timed: wavefront_bvh against wavefront_pallas (scene 9) and
+    # against render()'s mega2 on the large world
+    w, h, spp = BVH_TIMED
+    for name, desc, other in (("scene 9", scene_desc(9)[0],
+                               "wavefront_pallas"),
+                              ("sphere_field()", sphere_field(), "mega2")):
+        sc, mt = compile_scene(desc, w, h, dtype=np.float32)
+        cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                           max_bounces=BVH_DEPTH)
+        bcfg = cfg.with_(engine="wavefront_bvh")
+        sec, img, calls, steps = bvh_counts(      # with the host build
+            lambda: render(sc, mt, bcfg, device=dev))
+        evs = device_events(lambda: render(sc, mt, bcfg, device=dev), 1,
+                            warm=False)
+        busy = sum(us for _, us, _ in evs) / 1e3 / (sec * 1e3)
+        launches = sum(n for *_, n in evs)
+        ocfg = cfg.with_(engine=other)
+        o_sec, o_img = timed(lambda: render(sc, mt, ocfg, device=dev), 1)
+        print(f"  (d) {name} at {w}x{h}@{spp}, {BVH_DEPTH} bounces: "
+              f"wavefront_bvh {sec:.2f} s, "
+              f"{calls} iterations, {steps / max(calls, 1):.1f} traversal "
+              f"steps an iteration, {launches} launches, busy {busy:.3f}; "
+              f"{other} {o_sec:.4f} s; on {card}", flush=True)
+        engines_agree(img, o_img, f"(d) {name}, wavefront_bvh vs {other}")
+    print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2115,6 +2455,14 @@ def main() -> int:
           f"K3 / K4, card vs CPU, the differentiable render, "
           f"recover_geometry", flush=True)
     phase_general_step(dev, card, mega2_step)
+
+    w, h, spp = BVH_FRAME
+    print(f"[16] the BVH engines: bvh_closest_hit on the card vs the CPU; "
+          f"bvh / wavefront_bvh vs bruteforce / wavefront at {w}x{h}@{spp} "
+          f"(f64, f32); bvh vs the oracle at "
+          f"{BVH_ORACLE[0]}x{BVH_ORACLE[1]}@{BVH_ORACLE[2]}; wavefront_bvh "
+          f"timed against wavefront_pallas and mega2", flush=True)
+    phase_bvh(dev, card)
 
     if any(m.startswith(("jax", "raytracinginoneweekendincuda_tpu"))
            for m in sys.modules):

@@ -52,6 +52,26 @@ def pcg4d_numpy(v0, v1, v2, v3):
     return v0, v1, v2, v3
 
 
+def _unit_numpy(word, float_dtype):
+    """uint32 word -> float in [0, 1) from its top 24 bits (numpy)."""
+    scale = np.dtype(float_dtype).type(1.0 / 16777216.0)
+    return (word >> 8).astype(float_dtype) * scale
+
+
+def uniform4_numpy(pixel, sample, stream, slot, *, float_dtype):
+    """`uniform4` over numpy uint32 arrays (the JAX package's numpy path,
+    expression for expression): four uniforms in [0, 1)."""
+    return tuple(_unit_numpy(w, float_dtype)
+                 for w in pcg4d_numpy(pixel, sample, stream, slot))
+
+
+def uniform_open4_numpy(pixel, sample, stream, slot, *, float_dtype):
+    """`uniform_open4` over numpy uint32 arrays: four uniforms in (0, 1]."""
+    one = np.dtype(float_dtype).type(1.0 / 16777216.0)
+    return tuple(_unit_numpy(w, float_dtype) + one
+                 for w in pcg4d_numpy(pixel, sample, stream, slot))
+
+
 def to_word(x: int) -> int:
     """A uint32 constant as the int32 with the same bits."""
     x &= 0xFFFFFFFF

@@ -4,7 +4,9 @@ Port of ``raytracinginoneweekendincuda_tpu/core/samplers.py``.  The lens
 disk serves every engine.  `unit_ball` follows the op order of the mega2
 kernel (``ops/mega2.py:_scatter_dirs``) in f32; `unit_ball_xyz` and
 `unit_sphere_surface` are the XLA engines' samplers as written, for f32
-and f64.  Square roots are correctly rounded (:func:`sqrt_f32`).
+and f64.  Square roots are correctly rounded (:func:`sqrt_f32`).  The
+``*_numpy`` samplers are the JAX package's ``xp=np`` paths, expression for
+expression, for the f64 oracle (`testing/oracle.py`).
 """
 
 from __future__ import annotations
@@ -86,3 +88,39 @@ def unit_sphere_surface(u1, u2) -> torch.Tensor:
     rho = safe_root(1.0 - z * z, 0.5)
     return torch.stack((rho * torch.cos(phi), rho * torch.sin(phi), z),
                        dim=-1)
+
+
+# ---- the same samplers over numpy arrays / scalars (the JAX package's
+# ``xp=np`` paths as written), for the f64 oracle
+
+TWO_PI_F64 = 2.0 * np.pi
+
+
+def _safe_root_numpy(x, p):
+    pos = x > 0
+    return np.where(pos, np.where(pos, x, 1.0) ** p, 0.0)
+
+
+def unit_ball_numpy(u1, u2, u3):
+    """Uniform point in the unit ball [..., 3] (numpy)."""
+    z = 1.0 - 2.0 * u1
+    phi = TWO_PI_F64 * u2
+    rho = _safe_root_numpy(1.0 - z * z, 0.5)
+    r = _safe_root_numpy(u3, 1.0 / 3.0)
+    return np.stack((r * rho * np.cos(phi), r * rho * np.sin(phi), r * z),
+                    axis=-1)
+
+
+def unit_sphere_surface_numpy(u1, u2):
+    """Uniform direction on the unit sphere [..., 3] (numpy)."""
+    z = 1.0 - 2.0 * u1
+    phi = TWO_PI_F64 * u2
+    rho = _safe_root_numpy(1.0 - z * z, 0.5)
+    return np.stack((rho * np.cos(phi), rho * np.sin(phi), z), axis=-1)
+
+
+def unit_disk_numpy(u1, u2):
+    """Uniform point in the unit disk [..., 2] (numpy)."""
+    r = _safe_root_numpy(u1, 0.5)
+    theta = TWO_PI_F64 * u2
+    return np.stack((r * np.cos(theta), r * np.sin(theta)), axis=-1)

@@ -235,6 +235,84 @@ def medium_candidates(s: SceneArrays, o, d, t_min, u_med):
     return torch.where(valid, t_cand, BIG)
 
 
+# lanes one partial sum of `row_sum` adds: a row with n lanes is summed in
+# ceil(log_ROW_CHUNK(n)) levels of chunk sums, every chunk in parallel
+# (two for a frame of up to 262,144 lanes; each level is ~25 launches)
+ROW_CHUNK = 512
+
+
+def _chunk_sums(seg, vals, rows: int, width: int, per_row: bool):
+    """One level of `row_sum`: ``vals`` [n, C] sorted by row ``seg`` [n]
+    (``rows`` marks padding) -> (row, sum) of each chunk of at most
+    ``width`` consecutive lanes of one row.  ``per_row``: every row has at
+    most ``width`` lanes, so the result is [rows, C] in row order; else
+    the chunks come sorted by row, padded to a length fixed by the
+    shapes."""
+    n = vals.shape[0]
+    dev = seg.device
+    r = torch.arange(rows, device=dev)
+    starts = torch.searchsorted(seg, r)
+    ends = torch.searchsorted(seg, r, right=True)
+    if per_row:
+        row_of, first = r, starts
+    else:
+        nch = (ends - starts + (width - 1)) // width
+        last = torch.cumsum(nch, 0)               # integer: exact
+        j = torch.arange(min(n, -(-n // width) + rows), device=dev)
+        row_of = torch.searchsorted(last, j, right=True)   # rows = padding
+        rc = torch.clamp(row_of, max=rows - 1)
+        first = starts[rc] + (j - (last[rc] - nch[rc])) * width
+        ends = torch.where(row_of < rows, ends[rc], 0)
+    src = first[:, None] + torch.arange(width, device=dev)
+    src = torch.where(src < ends[:, None], src, n)      # n: the zero row
+    pad = torch.cat([vals, vals.new_zeros((1, vals.shape[1]))])
+    part = pad.index_select(0, src.reshape(-1))
+    return row_of, part.view(src.shape[0], width, -1).sum(1)
+
+
+def row_sum(idx: torch.Tensor, grad: torch.Tensor, rows: int):
+    """``zeros(rows, C).index_add_(0, idx, grad)`` with the order of every
+    sum fixed by ``idx`` alone: a stable sort groups each row's lanes in
+    lane order, then chunks of `ROW_CHUNK` lanes are summed in parallel,
+    level after level, until one sum a row is left.  Only sorts, gathers
+    and sums over a dimension run -- no atomics, no float scan -- so
+    the result repeats bit for bit on the card (``index_add_``'s CUDA
+    atomics add in a different order on each run).  No host sync."""
+    seg, order = torch.sort(idx, stable=True)
+    vals = grad.index_select(0, order)
+    bound = idx.shape[0]                  # the most lanes a row can have
+    while bound > ROW_CHUNK:
+        seg, vals = _chunk_sums(seg, vals, rows, ROW_CHUNK, per_row=False)
+        bound = -(-bound // ROW_CHUNK)
+    return _chunk_sums(seg, vals, rows, max(bound, 1), per_row=True)[1]
+
+
+class _RowRead(torch.autograd.Function):
+    """``table.index_select(0, idx)`` whose backward is `row_sum`."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        return row_sum(idx, grad.contiguous(), ctx.rows), None
+
+
+def read_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` [B] (int64) of ``table`` [R, C] -> [B, C]: the winner
+    reads of the hit record and the replay.  The forward is
+    ``index_select`` (the same values); the gradient of ``table`` sums
+    each row's lanes in an order fixed by the data (`row_sum`), so a
+    train step repeats on the card.  Advanced indexing's backward would
+    sort too, but walks a row's duplicates one thread at a time: with
+    most lanes on the ground sphere's row it took most of a step."""
+    return _RowRead.apply(table, idx)
+
+
 def first_argmin(t, t_best):
     """Index of the first occurrence of ``t_best`` along the last axis."""
     n = t.shape[-1]
@@ -328,10 +406,7 @@ def assemble_record(scene, meta, der: Derived, o, d, time, t, kind, is_best,
     p = o + t_safe[:, None] * d
 
     # ---- sphere record (Sphere.h:40-58 + GetSphereUV:74-81)
-    # winner rows by index_select: its backward adds with index_add_;
-    # advanced indexing's backward sorts the indices, and with most lanes
-    # on a few rows it took most of a train step's backward on the card
-    srow = der.sph_tab.index_select(0, is_best)
+    srow = read_rows(der.sph_tab, is_best)
     c0, dc = srow[:, 0:3], srow[:, 3:6]
     frac = (time - srow[:, 6]) * srow[:, 7]
     center = c0 + frac[:, None] * dc
@@ -357,7 +432,7 @@ def assemble_record(scene, meta, der: Derived, o, d, time, t, kind, is_best,
     mat_s = srow[:, 11]
 
     # ---- quad record (Quad.h:76-98)
-    qrow = der.quad_tab.index_select(0, iq_best)
+    qrow = read_rows(der.quad_tab, iq_best)
     n_q = qrow[:, 0:3]
     pq = p - qrow[:, 9:12]
     alpha = vm.dot(pq, qrow[:, 3:6])
@@ -386,6 +461,6 @@ def assemble_record(scene, meta, der: Derived, o, d, time, t, kind, is_best,
         normal = torch.where(is_med[:, None], n_out, normal)
 
     mat_i = mat.to(torch.int64)
-    mrow = der.mat_tab.index_select(0, mat_i)
+    mrow = read_rows(der.mat_tab, mat_i)
     return HitRecord(t=t, p=p, normal=normal, u=uu, v=vv, front=front,
                      mat=mat_i, hit=hit, mrow=mrow)

@@ -4,8 +4,9 @@ quantize.
 Port of ``raytracinginoneweekendincuda_tpu/ops/render.py``.  Engines:
 ``mega2`` (the default; kernel K1), ``mega`` (kernel K5; Perlin and image
 scenes go to ``wavefront_pallas``, as in the JAX package),
-``wavefront_pallas`` (kernel K6), ``wavefront`` and the chunked
-``bruteforce`` (plain PyTorch).  Pixel ids are ``j*W + i`` with ``j``
+``wavefront_pallas`` (kernel K6), and in plain PyTorch ``wavefront``,
+``wavefront_bvh`` and the chunked ``bruteforce`` and ``bvh`` (the
+threaded BVH of `ops/bvh_engine.py`).  Pixel ids are ``j*W + i`` with ``j``
 counting up from the bottom scanline (kernel.cu:131); the returned image
 is flipped to top-down rows.
 """
@@ -18,7 +19,8 @@ import torch
 from ..scene.compiler import SceneArrays, SceneMeta
 from ..utils.config import RenderConfig
 
-ENGINES = ("mega2", "mega", "wavefront_pallas", "wavefront", "bruteforce")
+ENGINES = ("mega2", "mega", "wavefront_pallas", "wavefront", "wavefront_bvh",
+           "bruteforce", "bvh")
 
 
 def finalize(fb: torch.Tensor, spp: int, gamma: bool,
@@ -46,10 +48,11 @@ def resolve_device(device) -> torch.device:
 def render_chunk(scene, meta, pix: torch.Tensor, *, width: int, height: int,
                  spp: int, seed: int, max_bounces: int, t_min: float,
                  differentiable: bool = False, gamma: bool = True,
-                 engine: str = "bruteforce"):
+                 engine: str = "bruteforce", bvh=None):
     """Average radiance [P, 3] over ``spp`` samples for one pixel chunk
     ``pix`` [P] of a tensor scene (`hit.scene_tensors`), gamma applied
-    when ``gamma``; ``differentiable`` runs the integrator's scan form."""
+    when ``gamma``; ``differentiable`` runs the integrator's scan form;
+    ``bvh`` the BVH arrays of engine ``bvh`` (`scene/bvh.py`)."""
     from .dispatch import trace_dispatch
     from .raygen import generate_rays
 
@@ -61,7 +64,7 @@ def render_chunk(scene, meta, pix: torch.Tensor, *, width: int, height: int,
         acc = acc + trace_dispatch(scene, meta, o, d, time, pix_ctr, s,
                                    engine=engine, max_bounces=max_bounces,
                                    t_min=t_min,
-                                   differentiable=differentiable)
+                                   differentiable=differentiable, bvh=bvh)
     col = acc / float(spp)
     if gamma:
         col = torch.sqrt(torch.clamp_min(col, 0.0).double()).to(col.dtype)
@@ -70,8 +73,9 @@ def render_chunk(scene, meta, pix: torch.Tensor, *, width: int, height: int,
 
 def _render_chunked(scene, meta, cfg: RenderConfig, dev, gamma: bool,
                     out_u8: bool) -> np.ndarray:
-    """The chunked ``bruteforce`` engine: pixel chunks of
-    ``cfg.rays_per_batch``, samples summed inside each chunk."""
+    """The chunked engines (``bruteforce``, ``bvh``): pixel chunks of
+    ``cfg.rays_per_batch``, samples summed inside each chunk; the BVH is
+    built once a render."""
     from .hit import scene_tensors
 
     W, H = cfg.width, cfg.height
@@ -79,6 +83,11 @@ def _render_chunked(scene, meta, cfg: RenderConfig, dev, gamma: bool,
     P = min(cfg.rays_per_batch, npix)
     st = scene_tensors(scene, dev)
     t_min = float(np.asarray(cfg.t_min, np.asarray(scene.sph_rad).dtype))
+    bvh = None
+    if cfg.engine == "bvh":
+        from ..scene.bvh import build_scene_bvh
+
+        bvh = build_scene_bvh(scene)
     out = np.zeros((npix, 3), np.float64)
     for start in range(0, npix, P):
         ids = torch.arange(start, min(start + P, npix), device=dev)
@@ -86,7 +95,7 @@ def _render_chunked(scene, meta, cfg: RenderConfig, dev, gamma: bool,
                            spp=cfg.samples_per_pixel, seed=cfg.seed,
                            max_bounces=cfg.max_bounces, t_min=t_min,
                            differentiable=cfg.differentiable, gamma=gamma,
-                           engine=cfg.engine)
+                           engine=cfg.engine, bvh=bvh)
         out[start:start + P] = col.cpu().numpy()
     fb = out.reshape(H, W, 3)                  # row 0 = bottom scanline
     if out_u8:  # the quantized-uint8 contract (kernel.cu:709-718), in f64
@@ -99,11 +108,11 @@ def render(scene: SceneArrays, meta: SceneMeta, cfg: RenderConfig, *,
     """Render a full frame on ``device`` with engine ``cfg.engine`` ->
     numpy [H, W, 3], top row first (float, or uint8 when ``out_u8``).
     ``cfg.differentiable`` selects the integrator's scan form on the
-    chunked ``bruteforce`` engine; the other engines have one loop each
-    and ignore it, as in the JAX package."""
+    chunked engines (``bruteforce``, ``bvh``); the other engines have one
+    loop each and ignore it, as in the JAX package."""
     if cfg.engine not in ENGINES:
         raise NotImplementedError(
-            f"engine {cfg.engine!r} is not ported yet; the port has "
+            f"engine {cfg.engine!r} is not ported; the port has "
             f"{', '.join(ENGINES)} (see ROADMAP.md, queue 1)")
     dev = resolve_device(device)
     engine = cfg.engine
@@ -112,7 +121,7 @@ def render(scene: SceneArrays, meta: SceneMeta, cfg: RenderConfig, *,
 
         tab = pack_mega2_tables(scene, meta, dev)
         fb = render_mega2(tab, frame_params(scene, cfg))
-    elif engine == "bruteforce":
+    elif engine in ("bruteforce", "bvh"):
         return _render_chunked(scene, meta, cfg, dev, gamma, out_u8)
     else:
         from .mega import mega_supported, render_mega

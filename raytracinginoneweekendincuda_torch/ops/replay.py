@@ -278,7 +278,7 @@ def taped_record(scene: SceneArrays, meta: SceneMeta, rep, med_rows, o, d,
     w = w.to(torch.int64)
     hit = w >= 0
     kind = torch.where(w < S, 0, torch.where(w < NP, 1, 2))
-    row = rep.index_select(0, torch.clamp(w, 0, NP - 1))    # see hit.py
+    row = hit_ops.read_rows(rep, torch.clamp(w, 0, NP - 1))
 
     # ---- sphere re-intersection (Sphere.h:29-58, direct oc form)
     frac = (time - row[:, 6]) * row[:, 7]
@@ -363,8 +363,8 @@ def taped_record(scene: SceneArrays, meta: SceneMeta, rep, med_rows, o, d,
         uu = torch.where(is_med, 0.0, uu)
         vv = torch.where(is_med, 0.0, vv)
         mat = torch.where(is_med, scene.med_mat[i_m].to(mat.dtype), mat)
-        mrow = torch.where(is_med[:, None], med_rows.index_select(0, i_m),
-                           mrow)
+        mrow = torch.where(is_med[:, None],
+                           hit_ops.read_rows(med_rows, i_m), mrow)
 
     front = vm.dot(d, n_out) < 0.0
     normal = torch.where(front[:, None], n_out, -n_out)

@@ -1,5 +1,5 @@
-"""Persistent-wavefront render engine (engines ``wavefront`` and
-``wavefront_pallas``).
+"""Persistent-wavefront render engine (engines ``wavefront``,
+``wavefront_bvh`` and ``wavefront_pallas``).
 
 Port of ``raytracinginoneweekendincuda_tpu/ops/wavefront.py``.  A fixed
 pool of rays advances one bounce per iteration; every iteration
@@ -10,7 +10,8 @@ pool of rays advances one bounce per iteration; every iteration
      items (work item k -> pixel k % npix, sample k // npix; camera rays
      come from the counter RNG, so there is no state to carry),
   3. advances the whole pool one `bounce_step`, with the brute-force hit
-     (``wavefront``) or kernel K6 (``wavefront_pallas``).
+     (``wavefront``), the threaded-BVH hit (``wavefront_bvh``,
+     `ops/bvh_engine.py`) or kernel K6 (``wavefront_pallas``).
 
 Every radiance sample uses the chunked engine's RNG counters, so the two
 agree up to the order of the framebuffer sums.  The loop condition costs
@@ -23,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..scene.compiler import cached_pack
 from . import hit as hit_ops
 from .integrator import bounce_step
 from .mega import refill_lanes
@@ -81,12 +83,24 @@ def render_wavefront_frame(scene, meta, hit_fn, *, width: int, height: int,
     return fb
 
 
+_BVH_CACHE: dict = {}
+
+
 def render_wavefront(scene, meta, cfg, *, device) -> torch.Tensor:
     """Radiance sums [H*W, 3] of the whole frame through the wavefront
-    engine ``cfg.engine`` (``wavefront`` or ``wavefront_pallas``) on
-    ``device``, in the scene's dtype."""
+    engine ``cfg.engine`` (``wavefront``, ``wavefront_bvh`` or
+    ``wavefront_pallas``) on ``device``, in the scene's dtype.  The host
+    BVH build of ``wavefront_bvh`` is cached per scene (`cached_pack`,
+    keyed on every leaf), as the JAX engine's ``_accel_for``."""
     st = hit_ops.scene_tensors(scene, device)
-    if cfg.engine == "wavefront_pallas":
+    if cfg.engine == "wavefront_bvh":
+        from ..scene.bvh import build_scene_bvh
+        from .bvh_engine import bvh_hit_fn
+
+        bvh = cached_pack(_BVH_CACHE, scene, cfg.engine,
+                          lambda: build_scene_bvh(scene))
+        hit_fn = bvh_hit_fn(st, meta, bvh)
+    elif cfg.engine == "wavefront_pallas":
         from .pallas_hit import make_pallas_hit_fn, pack_geometry
 
         hit_fn = make_pallas_hit_fn(st, meta,

@@ -140,7 +140,13 @@ def make_train_step(scene: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
     ``auto``) or ``scan``; anything else raises ``ValueError``.  ``mark``,
     if given, is called with "tape" (the camera rays and the tapes of all
     samples; taped only), "forward" (the traces and the loss), "backward"
-    and "update" as each phase ends."""
+    and "update" as each phase ends.
+
+    The step repeats bit for bit on the card, as the JAX step does: its
+    gradient sums the winner rows' lanes with `hit.read_rows`, whose
+    backward adds in an order fixed by the data (``index_select``'s own
+    backward, ``index_add_``, adds with atomics in a different order on
+    each run, and Adam amplifies that over many steps)."""
     del scene                # the JAX signature's; the step reads scene_rest
     if engine not in ENGINES:
         raise ValueError(f"unknown differentiable engine: {engine!r}")

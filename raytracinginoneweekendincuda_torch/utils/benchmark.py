@@ -6,8 +6,8 @@ One warm-up frame, then the best of ``--repeats`` frames, each ending in
 the reference's clock (kernel.cu:675-693).  ``--engine mega2`` (the
 default) times the frame's kernel launch and the average/gamma/quantize
 epilogue, with table packing outside the clock; the other engines
-(``mega``, ``wavefront_pallas``, ``wavefront``, ``bruteforce``) time the
-whole ``ops/render.render`` call: packing, the frame loop with its host
+(``mega``, ``wavefront_pallas``, ``wavefront``, ``wavefront_bvh``,
+``bruteforce``, ``bvh``) time the whole ``ops/render.render`` call: packing, the frame loop with its host
 syncs, the epilogue and the readback.  Prints ONE JSON line with rays/s
 and the card's name.  Needs a CUDA device.
 """

@@ -2,12 +2,13 @@
 
 Same flags as ``raytracinginoneweekendincuda_tpu.utils.cli`` (defaults
 follow the reference: 1440x720, scene 9, per-scene spp, seed 1984), except
-that ``--device {cuda,cpu}`` replaces ``--cpu``, ``--sharded`` and
-``--profile``, and the BVH engines are not ported yet.  ``--device cuda``
-(the default) renders on the card -- the engines' CUDA kernels (K1 for
-``mega2``, K5 for ``mega``, K6 for ``wavefront_pallas``) and plain PyTorch
-around them -- and raises when there is no CUDA device; ``--device cpu``
-renders with the plain PyTorch versions.
+that ``--device {cuda,cpu}`` replaces ``--cpu``, and ``--sharded`` and
+``--profile`` are not ported.  ``--device cuda`` (the default) renders on
+the card -- the engines' CUDA kernels (K1 for ``mega2``, K5 for ``mega``,
+K6 for ``wavefront_pallas``) and plain PyTorch around them and for the
+other engines (``wavefront``, ``bruteforce`` and the BVH engines ``bvh``
+and ``wavefront_bvh``) -- and raises when there is no CUDA device;
+``--device cpu`` renders with the plain PyTorch versions.
 
 Usage:
     python -m raytracinginoneweekendincuda_torch.utils.cli \
@@ -21,6 +22,8 @@ import sys
 import time
 
 from ..ops.render import ENGINES
+
+F64_ENGINES = ("bruteforce", "bvh", "wavefront", "wavefront_bvh")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,16 +43,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", default="mega2", choices=ENGINES,
                    help="render engine: mega2 (kernel K1), mega (K5; noise "
                         "and image scenes fall back to wavefront_pallas), "
-                        "wavefront_pallas (K6), wavefront and bruteforce "
-                        "(plain PyTorch)")
+                        "wavefront_pallas (K6), wavefront, wavefront_bvh, "
+                        "bruteforce and bvh (plain PyTorch)")
     p.add_argument("--dtype", choices=("float32", "float64"),
                    default="float32",
-                   help="scene / engine dtype; float64 for bruteforce and "
-                        "wavefront (the kernels are f32)")
+                   help="scene / engine dtype; float64 for the plain "
+                        "PyTorch engines (bruteforce, bvh, wavefront, "
+                        "wavefront_bvh; the kernels are f32)")
     p.add_argument("--rays-per-batch", type=int, default=None,
-                   help="pixel chunk (bruteforce) or ray-pool size (the "
-                        "wavefront engines; mega caps it at 8192); mega2 "
-                        "renders the whole frame in one launch")
+                   help="pixel chunk (bruteforce, bvh) or ray-pool size "
+                        "(the wavefront engines; mega caps it at 8192); "
+                        "mega2 renders the whole frame in one launch")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda: the CUDA kernel (raises without a card); "
                         "cpu: the plain PyTorch version")
@@ -77,10 +81,9 @@ def main(argv=None) -> int:
         dtype=args.dtype)
     if args.rays_per_batch is not None:
         cfg = cfg.with_(rays_per_batch=args.rays_per_batch)
-    if args.dtype == "float64" and args.engine not in ("bruteforce",
-                                                       "wavefront"):
-        raise SystemExit(f"--dtype float64 needs engine bruteforce or "
-                         f"wavefront, not {args.engine}")
+    if args.dtype == "float64" and args.engine not in F64_ENGINES:
+        raise SystemExit(f"--dtype float64 needs engine "
+                         f"{', '.join(F64_ENGINES)}, not {args.engine}")
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"Rendering scene {args.scene} ({SCENE_NAMES[args.scene]}): "
           f"{cfg.width}x{cfg.height}, {spp} spp, engine={args.engine}, "

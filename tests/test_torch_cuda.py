@@ -2,10 +2,12 @@
 -- K1 (csrc/mega2_render.cu), K2 (csrc/mega2_trace.cu), K3 / K4
 (csrc/replay_fwd.cu, csrc/replay_bwd.cu) against ``replay_plain`` and its
 autograd, K5 (csrc/mega_bounces.cu), K6 (csrc/closest_geo.cu) and the
-probes P1-P3 (csrc/probe_pair.cu, probe_intmul.cu, probe_mosaic.cu).
-Imports only the port (the card's machine has no JAX).  Marked
-``cuda``; skipped where there is no CUDA device (the kernels have no CPU
-build).  Run on a card with
+probes P1-P3 (csrc/probe_pair.cu, probe_intmul.cu, probe_mosaic.cu);
+and the plain PyTorch paths that only the card can test: the general
+train step repeating bit for bit, the BVH engines against their
+brute-force twins.  Imports only the port (the card's machine has no
+JAX).  Marked ``cuda``; skipped where there is no CUDA device (the
+kernels have no CPU build).  Run on a card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda -p no:xdist``."""
 
 import numpy as np
@@ -731,3 +733,52 @@ def test_general_step_matches_cpu_on_card(dev):
         np.testing.assert_allclose(l_g, l_c, rtol=1e-5, err_msg=engine)
         for g, c in zip(p_g, p_c):
             torch.testing.assert_close(g, c, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("engine", ["taped", "scan"])
+def test_general_step_repeats_on_card(engine, dev):
+    """One ``make_train_step`` step run twice from the same parameters on
+    the card, scene 0 at 128x72@2, K 4 (most lanes on the ground sphere's
+    row): loss, every gradient and every leaf after Adam bit-identical
+    (the winner reads' backward, ``hit.row_sum``, adds in an order fixed
+    by the data)."""
+    W, H = 128, 72
+    scene, meta = compile_scene(scenes.build_scene(0), W, H,
+                                dtype=np.float32)
+    start = scene._replace(tex_c0=np.clip(
+        np.asarray(scene.tex_c0) * 0.5 + 0.2, 0.0, 1.0).astype(np.float32))
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=2,
+                       max_bounces=4)
+    target = torch.as_tensor(np.random.default_rng(0).random(
+        (W * H, 3)).astype(np.float32), device=dev)
+    runs = []
+    for _ in range(2):
+        state = train.init_state(start, lambda ps: torch.optim.Adam(
+            ps, lr=1e-2), device=dev)
+        step = train.make_train_step(start, meta, cfg, engine=engine)
+        state, loss = step(state, start, np.arange(W * H), target)
+        leaves = train.parameter_list(state.params)
+        runs.append((float(loss), [p.detach().clone() for p in leaves],
+                     [torch.zeros_like(p) if p.grad is None else p.grad
+                      for p in leaves]))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1] + runs[0][2], runs[1][1] + runs[1][2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sid", [0, 4, 9])
+def test_bvh_engines_match_bruteforce_on_card(sid, dev):
+    """``bvh`` / ``wavefront_bvh`` against the card's ``bruteforce`` /
+    ``wavefront`` frames at f64, 16x8@1, max_bounces 8: at most 2 pixels
+    above 1e-9 (tests/test_torch_bvh.py's bound)."""
+    from raytracinginoneweekendincuda_torch.ops.render import render
+
+    scene, meta = compile_scene(scenes.build_scene(sid), 16, 8,
+                                dtype=np.float64)
+    cfg = RenderConfig(width=16, height=8, samples_per_pixel=1,
+                       max_bounces=8, dtype="float64")
+    img = {e: render(scene, meta, cfg.with_(engine=e), device=dev)
+           for e in ("bruteforce", "bvh", "wavefront", "wavefront_bvh")}
+    for got, want in (("bvh", "bruteforce"), ("wavefront_bvh", "wavefront")):
+        diff = np.abs(img[got] - img[want]).max(-1)
+        assert img[got].any() and int((diff > 1e-9).sum()) <= 2, got

@@ -84,7 +84,8 @@ def test_cli_cpu_xla_engines(engine, tmp_path):
     assert a.shape == (16 * 8, 3) and np.abs(a - b).max() <= 1
 
 
-@pytest.mark.parametrize("engine", ("bruteforce", "mega"))
+@pytest.mark.parametrize("engine", ("bruteforce", "mega", "bvh",
+                                    "wavefront_bvh"))
 def test_cli_cuda_engine_without_card_raises(engine):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -165,7 +166,7 @@ def test_cli_rejects_unported_flags():
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(["--cpu"])
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["--engine", "bvh"])
+        cli.build_parser().parse_args(["--sharded"])
 
 
 def test_dispatch_on_cpu_tensors_leaves_launch_counter():
@@ -200,7 +201,7 @@ def test_render_unported_engine_raises():
     scene, meta = compile_scene(scenes.build_scene(4), 16, 8,
                                 dtype=np.float32)
     cfg = RenderConfig(width=16, height=8, samples_per_pixel=1,
-                       engine="wavefront_bvh")
+                       engine="raster")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render(scene, meta, cfg, device="cpu")
 
@@ -240,6 +241,28 @@ def test_render_u8_and_orientation():
     np.testing.assert_array_equal(
         img[-1, 0], np.sqrt(bottom_left[0].double().numpy() / 2)
         .astype(np.float32))
+
+
+def test_custom_scene_without_card_raises():
+    """The example renders on the card unless given ``--device cpu``."""
+    _no_card()
+    from raytracinginoneweekendincuda_torch.examples import custom_scene
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        custom_scene.main(["--width", "16", "--height", "9", "--spp", "1",
+                           "--out", os.devnull])
+
+
+def test_cli_float64_bvh_engines_on_cpu(tmp_path):
+    """``--dtype float64`` is taken by the plain PyTorch engines, the BVH
+    ones among them, and refused by the kernels' engines."""
+    base = ["--scene", "4", "--width", "8", "--height", "4", "--spp", "1",
+            "--device", "cpu", "--dtype", "float64"]
+    for engine in ("bvh", "wavefront_bvh"):
+        assert cli.main([*base, "--engine", engine,
+                         "--out", str(tmp_path / f"{engine}.ppm")]) == 0
+    with pytest.raises(SystemExit, match="float64"):
+        cli.main([*base, "--engine", "mega", "--out", os.devnull])
 
 
 def test_benchmark_without_card_raises():
