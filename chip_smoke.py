@@ -4,10 +4,11 @@
 
 Builds the port's CUDA kernels from the sources in this checkout -- K1
 (``csrc/mega2_render.cu``), K2 (``csrc/mega2_trace.cu``), K3
-(``csrc/replay_fwd.cu``), K4 (``csrc/replay_bwd.cu``), K5
-(``csrc/mega_bounces.cu``), K6 (``csrc/closest_geo.cu``) and the probes
-P1-P3 (``csrc/probe_pair.cu``, ``probe_intmul.cu``, ``probe_mosaic.cu``),
-one nvcc each, all started together -- and drives the port's six paths:
+(``csrc/replay_fwd.cu``), K4 (``csrc/replay_bwd.cu`` and its fixed-order
+sum ``csrc/rep_sum.cu``), K5 (``csrc/mega_bounces.cu``), K6
+(``csrc/closest_geo.cu``) and the probes P1-P3 (``csrc/probe_pair.cu``,
+``probe_intmul.cu``, ``probe_mosaic.cu``), one nvcc each, all started
+together -- and drives the port's seven paths:
 the render (the CLI's ``ops/render.render``, engine ``mega2``, at the
 reference's headline config, and on a world large enough for the chunk
 cull), the training step
@@ -15,9 +16,11 @@ cull), the training step
 (``render`` with ``wavefront_pallas`` and ``mega``), the probe tools
 (``tools/probe_*.main``) and the general train step
 (``parallel/train.make_train_step``, plain PyTorch, held against K2-K4)
-and the BVH engines (``render`` with ``bvh`` and ``wavefront_bvh``, plain
-PyTorch, held against the brute-force engines and the f64 oracle),
-holding every kernel against its plain PyTorch version.  Phases:
+the BVH engines (``render`` with ``bvh`` and ``wavefront_bvh``, plain
+PyTorch, held against the brute-force engines and the f64 oracle) and
+the sharded path (``parallel/render.render_sharded`` and the mesh
+steps over ``torch.distributed``), holding every kernel against its
+plain PyTorch version.  Phases:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the kernels' build times and ptxas reports;
@@ -53,9 +56,8 @@ holding every kernel against its plain PyTorch version.  Phases:
    1e-3, at most 1% of lanes whose d_rays or d_bg differ by more than
    1e-3 of the largest), and K4 on ``sphere_field(FIELD_SMALL)`` at phase
    7's 32x16 (sample 0, K 8), a table above the opt-in; with K3's and
-   K4's ptxas reports, K3's launch shapes, and each K4 launch's shape and
-   d_rep memory (shared where it fits beside the states, else global:
-   scene 9 and the large world);
+   K4's ptxas reports and each launch's shape (K4's d_rep: its slots
+   summed by ``rep_sum.cu`` in an order fixed by the data);
 9. the training step at full width: scene 0 at 640x360, spp 8, K 8
    (1.84 M lanes), Adam lr 1e-2, one warm-up and three timed steps, split
    into phases with CUDA events (the forward into the replay table,
@@ -65,9 +67,13 @@ holding every kernel against its plain PyTorch version.  Phases:
    (`tools/lane_share.trace_shares`) and K2 against its plain version on
    all lanes, K3 and K4 against ``replay_plain`` and its autograd on all of
    sample 0's lanes (the shape the step launches them at; K3's launch
-   shape and ptxas report, K4's launch shape, d_rep in shared memory), K4
-   also on every 97th pixel; each kernel timed alone against its plain
-   version;
+   shape and ptxas report, K4's launch shape), K4 also on every 97th
+   pixel; K4 launched twice there (d_rep, d_rays and d_bg bit-equal: a
+   gate) and split into the kernel and its fixed-order sum by CUDA
+   events, the sum (``rep_sum_cuda``) held against its plain twin
+   (``rep_sum_plain``, ``hit.row_sum``'s order) within rel-L2 1e-5 and
+   bit-equal on a second call, timed beside the twin and ``index_add_``;
+   each kernel timed alone against its plain version;
    then the scene-4 loss-decrease check (12x8, 4 steps);
 10. K6 against ``closest_geo_plain`` on all ten scenes (tables in shared
     memory) and on ``sphere_field()`` (10,001 spheres: tables above the
@@ -145,9 +151,10 @@ holding every kernel against its plain PyTorch version.  Phases:
     by at most 10% of the median parent step; the host-clock ratio
     printed), and as
     ``index_select`` under deterministic algorithms from the forward's end
-    to the backward's; the mega2 step twice from the start's parameters
-    and a ``wavefront_pallas`` frame of scene 0 at 1440x720@10 twice,
-    their equality reported, not gated; the phase's seconds;
+    to the backward's; the mega2 step twice from the start's parameters,
+    bit-identical in loss, gradients and leaves (a gate: fault 7), and a
+    ``wavefront_pallas`` frame of scene 0 at 1440x720@10 twice, its
+    equality reported, not gated; the phase's seconds;
 16. the BVH engines (plain PyTorch, no kernel): the numpy build's time
     on scene 9 and ``sphere_field()``; (a) ``bvh_engine.traverse`` on
     phase 12's scene-9 pool (131,072 camera rays) on the card against
@@ -163,7 +170,21 @@ holding every kernel against its plain PyTorch version.  Phases:
     against ``wavefront_pallas`` on scene 9 and against ``render()``'s
     mega2 on ``sphere_field()`` at 96x54@2, 8 bounces, with its
     iterations, traversal steps an iteration, launches and busy share
-    (profiler), each frame against the other engine's as in (b).
+    (profiler), each frame against the other engine's as in (b);
+17. the sharded path: (a) K1 with ``samp0`` 5 on px shard 1 of 2's
+    interleaved ids of scene 0 at 1440x720@5, array-equal to the plain
+    version, and its two windows of 5 samples within 5e-7 of 10 samples;
+    (b) a world of 1 over NCCL in this process: ``render_sharded`` at
+    1440x720@10 bit-identical to ``render()``, NCCL's all_reduce and
+    all_gather of the frame timed, the 1x1 mesh step bit-identical to
+    ``make_train_step_mega2``; (c) worlds of 2 over gloo, both ranks
+    spawned on this card, meshes (2, 1) and (1, 2): the frame
+    bit-identical (sp 1) or within 5e-7 (sp 2) of ``render()``, the
+    mega2 mesh step at phase 9's configuration and, on (2, 1), the taped
+    step at scene 0 64x32@2, K 8, against the one-device steps (loss rel
+    1e-6, leaves after one Adam step 3e-6), the ranks' frames and leaves
+    equal; (d) the frame and the mega2 step at world 1 and 2, best of 3,
+    host clock + sync, with the collectives' share.
 
 Prints the kernel record and the card on lines of their own, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, before that
@@ -179,7 +200,9 @@ import hashlib
 import io
 import json
 import os
+import multiprocessing
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -188,6 +211,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from raytracinginoneweekendincuda_torch.core import rng
 from raytracinginoneweekendincuda_torch.core.image import write_ppm
@@ -212,7 +236,8 @@ from raytracinginoneweekendincuda_torch.ops.raygen import (
     camera_tuple, generate_rays,
 )
 from raytracinginoneweekendincuda_torch.ops.render import finalize, render
-from raytracinginoneweekendincuda_torch.parallel import train
+from raytracinginoneweekendincuda_torch.parallel import distributed, train
+from raytracinginoneweekendincuda_torch.parallel import render as prender
 from raytracinginoneweekendincuda_torch.tools import (
     cull_share, probe_intmul, probe_mosaic, probe_pair,
 )
@@ -328,6 +353,14 @@ PROBE_BATCH = 20          # back-to-back launches a timed P3 batch
 P3_RETIME = ("transposed_onehot_dot", "gather_sublane")   # lost to their
 RETIME_ROUNDS = 7         # library call (PERF.md): timed again, in turns
 KERNEL_BATCH = 10         # back-to-back launches a timed K2-K6 batch
+# Phase 17, the sharded path: K1's sample window on an interleaved px
+# shard of the main frame at half its samples; the taped general step of
+# (c) at scene 0 64x32@2, K 8; the world-2 meshes (two ranks sharing the
+# card over gloo) and how long a world may take.
+SHARD_WINDOW = (1440, 720, 5)
+SHARD_TAPED = (0, 64, 32, 2, 8)
+WORLD2_SHAPES = ((2, 1), (1, 2))
+WORLD_TIMEOUT = 240
 
 
 def synthetic_texture() -> np.ndarray:
@@ -471,6 +504,7 @@ LOADERS = {"mega2_render": mega2.load_kernel,
            "mega2_trace": mega2.load_trace_kernel,
            "replay_fwd": rc.load_fwd_kernel,
            "replay_bwd": rc.load_bwd_kernel,
+           "rep_sum": rc.load_rep_sum_kernel,
            "mega_bounces": mega.load_kernel,
            "closest_geo": pallas_hit.load_kernel,
            "probe_pair": probe_pair.load_kernel,
@@ -747,10 +781,9 @@ def ptxas_kernels(report: str) -> list:
 
 
 def k4_ptxas(report: str) -> str:
-    """K4's instantiations in its ptxas report: registers, stack, spills."""
+    """K4's kernel in its ptxas report: registers, stack, spills."""
     return "; ".join(
-        f"{'shared' if 'ILb1E' in name else 'global'} d_rep {regs} "
-        f"registers, {stack}-byte stack, {spill} bytes spilled"
+        f"{regs} registers, {stack}-byte stack, {spill} bytes spilled"
         for name, regs, stack, spill in ptxas_kernels(report)
         if "replay_bwd_kernel" in name)
 
@@ -763,15 +796,11 @@ def k3_ptxas(report: str) -> str:
         if "replay_fwd_kernel" in name)
 
 
-def k4_launch(what: str, rep_shared: bool) -> None:
-    """Prints K4's last launch; raises if it summed d_rep in the other
-    memory than ``rep_shared`` says."""
-    got = rc.replay_bwd_cuda.rep_shared
+def k4_launch(what: str) -> None:
+    """Prints K4's last launch (its slots are summed into d_rep by
+    ``replay_cuda.rep_sum``, in an order fixed by the data)."""
     print(f"  {what}: K4 launch (blocks, threads, shared bytes) "
-          f"{rc.replay_bwd_cuda.shape}, d_rep summed in "
-          f"{'shared' if got else 'global'} memory", flush=True)
-    if got != rep_shared:
-        raise AssertionError(f"{what}: K4 summed d_rep in the wrong memory")
+          f"{rc.replay_bwd_slots_cuda.shape}", flush=True)
 
 
 def phase_replay(dev, k3_report: str, k4_report: str) -> None:
@@ -794,8 +823,7 @@ def phase_replay(dev, k3_report: str, k4_report: str) -> None:
         print(f"  scene {sid}: K3 launch (blocks, threads, shared bytes) "
               f"{rc.replay_fwd_cuda.shape}", flush=True)
         grad_check(tt, rays, tape, pc, bg, g, fp.t_min, f"scene {sid} K4")
-        k4_launch(f"scene {sid} ({tt.NP} table rows)", rc.bwd_rep_in_shared(
-            tt.NP, K, rc.bwd_smem_optin()))
+        k4_launch(f"scene {sid} ({tt.NP} table rows)")
     # a table above the opt-in: sphere_field(FIELD_SMALL), sample 0 of
     # phase 7's frame, its tape traced by K2 (the chunk cull engaged)
     w, h, _, K = TRACE_FIELD
@@ -808,7 +836,43 @@ def phase_replay(dev, k3_report: str, k4_report: str) -> None:
                                               tape, dev)
     grad_check(tt, rays, tape, pc, bg, g, fp.t_min,
                f"sphere_field({FIELD_SMALL}) at {w}x{h}, K {K}, K4")
-    k4_launch(f"sphere_field({FIELD_SMALL}) ({tt.NP} table rows)", False)
+    k4_launch(f"sphere_field({FIELD_SMALL}) ({tt.NP} table rows)")
+
+
+REP_SUM_REL = 1e-5  # rep_sum against its plain twin: rel-L2 (two fixed
+                    # orders of f32 sums of up to ~1e5 slots a row)
+
+
+def rep_sum_check(keys, rows, np_rows: int, n_row: int, dev) -> dict:
+    """K4's fixed-order sum on K4's slots of the step's shape: against its
+    plain twin (``rep_sum_plain``, ``hit.row_sum``'s order) within rel-L2
+    REP_SUM_REL, bit-equal to itself on a second call; timed against the
+    twin and ``index_add_`` (the one PyTorch call for the same sum, whose
+    atomics add in no fixed order).  Returns the kernel record."""
+    got = rc.rep_sum_cuda(keys, rows, np_rows)
+    again = rc.rep_sum_cuda(keys, rows, np_rows)
+    plain_ms, want = once_ms(lambda: rc.rep_sum_plain(keys, rows, np_rows))
+    rel = float((got - want).norm()) / max(float(want.norm()), 1e-30)
+    err = float((got - want).abs().max())
+    ids = torch.where(keys >= 0, keys, np_rows).reshape(-1).long()
+    flat = rows.reshape(-1, rp.REP_COLS)
+    lib_ms = device_ms(lambda: torch.zeros(
+        (np_rows + 1, rp.REP_COLS), device=dev).index_add_(0, ids, flat),
+        dev)
+    ms = device_ms(lambda: rc.rep_sum_cuda(keys, rows, np_rows), dev)
+    print(f"  rep_sum vs its plain twin on the step's {keys.numel()} slots: "
+          f"rel-L2 {rel:.2e} (bound {REP_SUM_REL:g}), max |diff| {err:.3e}; "
+          f"twice {'bit-equal' if torch.equal(got, again) else 'DIFFER'}; "
+          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, index_add_ {lib_ms:.4f} "
+          f"ms", flush=True)
+    if rel > REP_SUM_REL or not torch.equal(got, again):
+        raise AssertionError("rep_sum disagrees with its plain twin or "
+                             "does not repeat")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms,
+                bound=bound(n_row * 4 * rp.REP_COLS + keys.numel() * 4
+                            + np_rows * 4 * rp.REP_COLS,
+                            n_row * rp.REP_COLS))
 
 
 def phase_train(dev, card: str, k3_report: str, k4_report: str):
@@ -823,7 +887,7 @@ def phase_train(dev, card: str, k3_report: str, k4_report: str):
     pix = np.arange(P, dtype=np.int32)
 
     counters = (mega2.trace_tapes_cuda, rc.replay_fwd_cuda,
-                rc.replay_bwd_cuda)
+                rc.replay_bwd_cuda, rc.rep_sum_cuda)
     for c in counters:
         c.launches = 0
     state, loss = step(state, pix, target)               # warm-up
@@ -853,7 +917,8 @@ def phase_train(dev, card: str, k3_report: str, k4_report: str):
           f"call and the sum; backward: K4 x spp + derive's backward; "
           f"update: Adam]", flush=True)
     print(f"  launches over the 4 steps: K2 {launches[0]}, K3 {launches[1]}, "
-          f"K4 {launches[2]}; losses {losses}", flush=True)
+          f"K4 {launches[2]}, its fixed-order sum {launches[3]}; losses "
+          f"{losses}", flush=True)
     if min(launches) < 1:
         raise AssertionError("the training step did not launch every kernel")
     if not np.isfinite(losses).all():
@@ -923,8 +988,17 @@ def phase_train(dev, card: str, k3_report: str, k4_report: str):
     # K4 on the shape the step launches it: all of sample 0's lanes
     k4_st = grad_check(tt, rays, tape0, pc, bg, g, fp.t_min,
                        f"K4 sample 0, all {P} pixels")
-    k4_launch(f"K4 sample 0 ({tt.NP} table rows)", True)
+    k4_launch(f"K4 sample 0 ({tt.NP} table rows)")
     print(f"  K4 ptxas: {k4_ptxas(k4_report)}", flush=True)
+    # fault 7: K4 twice on the step's shape, all three outputs bit-equal
+    runs = [rc.replay_bwd_cuda(tt, tt.rep.detach(), rays, tape0, pc, 0, bg,
+                               g, t_min=fp.t_min) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"  K4 twice on all {P} lanes: d_rep, d_rays, d_bg "
+          f"{'bit-equal' if same else 'DIFFER'}", flush=True)
+    if not same:
+        raise AssertionError("K4 does not repeat")
+    del runs
     k4_plain_ms = k4_st["plain_ms"]
     dev_ms = {
         "mega2_trace": device_ms(lambda: mega2.trace_tapes_cuda(
@@ -936,6 +1010,18 @@ def phase_train(dev, card: str, k3_report: str, k4_report: str):
             tt, tt.rep.detach(), rays, tape0, pc, 0, bg, g, t_min=fp.t_min),
             dev),
     }
+    keys, rows, _, _ = rc.replay_bwd_slots_cuda(
+        tt, tt.rep.detach(), rays, tape0, pc, 0, bg, g, t_min=fp.t_min)
+    n_row = int((keys >= 0).sum())
+    k4_parts = (device_ms(lambda: rc.replay_bwd_slots_cuda(
+        tt, tt.rep.detach(), rays, tape0, pc, 0, bg, g, t_min=fp.t_min), dev),
+        device_ms(lambda: rc.rep_sum_cuda(keys, rows, tt.NP), dev))
+    print(f"  K4 split (CUDA events): the kernel, writing its {n_row} of "
+          f"{keys.numel()} lane-bounce slots with a row, {k4_parts[0]:.4f} "
+          f"ms; the fixed-order sum (rep_sum) {k4_parts[1]:.4f} ms",
+          flush=True)
+    rs_rec = rep_sum_check(keys, rows, tt.NP, n_row, dev)
+    del keys, rows
     print("  device ms per launch (CUDA events): " + ", ".join(
         f"{k} {v:.4f}" for k, v in dev_ms.items()) + f"; plain versions "
         f"(CUDA events, one call): K2 {k2_plain_ms:.1f}, K3 "
@@ -971,7 +1057,9 @@ def phase_train(dev, card: str, k3_report: str, k4_report: str):
             ms=dev_ms["replay_bwd"], plain_ms=k4_plain_ms,
             bound=bound(n_tt + nbytes(tt.rep)
                         + P * (28 + 4 * K + 4 + 12 + 28 + 12),
-                        lb0 * OPS_REPLAY_BWD)),
+                        lb0 * OPS_REPLAY_BWD),
+            split_ms={"kernel": k4_parts[0], "rep_sum": k4_parts[1]}),
+        "rep_sum": dict(launches=launches[3], **rs_rec),
     }
     for name, r in recs.items():
         print(f"  {name}: bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
@@ -1996,7 +2084,8 @@ def phase_repeat(dev, card: str, start, meta, cfg, pix, target,
                  ref: dict) -> None:
     """Phase 15 (e): the general step's repeatability (a gate), the row
     read's cost against the parent's and the deterministic-algorithms
-    option, and the mega2 step and a wavefront_pallas frame run twice
+    option, the mega2 step run twice (a gate: K4's d_rep is summed in an
+    order fixed by the data) and a wavefront_pallas frame run twice
     (reported only)."""
     for engine in ("taped", "scan"):
         state, step = general_step(start, meta, cfg, engine, dev)
@@ -2050,10 +2139,13 @@ def phase_repeat(dev, card: str, start, meta, cfg, pix, target,
         recs.append(step_record(state, loss))
     same = same_step(*recs)
     rel = max(leaf_rel_l2(recs[0][1], recs[1][1]))
-    print(f"  (e) mega2 step twice from the start's parameters (measured, "
-          f"not gated): {'bit-identical' if same else 'differ'}; loss "
+    print(f"  (e) mega2 step twice from the start's parameters: loss, "
+          f"gradients and leaves after Adam "
+          f"{'bit-identical' if same else 'DIFFER'}; loss "
           f"{recs[0][0]!r} / {recs[1][0]!r}, gradients' worst leaf rel-L2 "
           f"{rel:.2e}", flush=True)
+    if not same:
+        raise AssertionError("the mega2 step does not repeat (fault 7)")
     del recs, m2, state
 
     w, h, spp = MAIN
@@ -2220,6 +2312,307 @@ def phase_bvh(dev, card: str) -> None:
               f"{other} {o_sec:.4f} s; on {card}", flush=True)
         engines_agree(img, o_img, f"(d) {name}, wavefront_bvh vs {other}")
     print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def free_port() -> int:
+    """A free TCP port on this host, for a process group's address."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def step_arrays(state, loss) -> dict:
+    """A step's loss and leaves after the update as numpy arrays."""
+    return {"loss": np.float64(float(loss)), **{
+        f"leaf{k}": p.detach().cpu().numpy()
+        for k, p in enumerate(train.parameter_list(state.params))}}
+
+
+def steps_close(got: dict, want: dict, what: str) -> str:
+    """JAX's bounds for a mesh step against the one-device step
+    (tests/test_parallel.py): loss within rel 1e-6, every leaf after one
+    Adam 1e-2 step within 3e-6; raises beyond them."""
+    loss_rel = abs(float(got["loss"]) - float(want["loss"])) \
+        / abs(float(want["loss"]))
+    worst = max(float(np.abs(got[k] - want[k]).max())
+                for k in want if k.startswith("leaf"))
+    line = f"loss rel {loss_rel:.2e}, leaves max |diff| {worst:.2e}"
+    if loss_rel > 1e-6 or worst > 3e-6:
+        raise AssertionError(f"{what}: {line} (bounds 1e-6, 3e-6)")
+    return line
+
+
+def timed_calls(fn, patch: tuple, repeats: int = 3, barrier=None):
+    """(best host ms, collective ms of that run, the last result) of
+    ``fn()`` ended by a sync, best of ``repeats``; ``patch = (module,
+    name)`` is wrapped for the run so that its calls' host time, each
+    ended by a sync, is the collectives' share."""
+    mod, name = patch
+    real = getattr(mod, name)
+    spent = [0.0]
+
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    best, res = None, None
+    setattr(mod, name, wrapped)
+    try:
+        for _ in range(repeats):
+            if barrier is not None:
+                barrier()
+            torch.cuda.synchronize()
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ms = ((time.perf_counter() - t0) * 1e3, spent[0] * 1e3)
+            best = ms if best is None or ms[0] < best[0] else best
+    finally:
+        setattr(mod, name, real)
+    return best[0], best[1], res
+
+
+def sharded_rank(rank: int, world: int, n_sp: int, init: str,
+                 out_dir: str) -> None:
+    """One rank of phase 17 (c): joins a gloo world on cuda:0 (shared with
+    the other ranks), renders the main frame through render_sharded, takes
+    the mega2 mesh step at phase 9's configuration (and, on a (2, 1) mesh,
+    the taped general step at SHARD_TAPED) from the start's parameters,
+    times each best of 3 with its collectives' share, and saves all of it
+    to ``out_dir``."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    distributed.initialize(init_method=init, world_size=world, rank=rank,
+                           backend="gloo", device=str(dev))
+    mesh = prender.make_mesh(sample_shards=n_sp, device=dev)
+    res, times = {}, {"rank": rank, "coord": list(mesh.coord)}
+    scene, meta, cfg, _ = compile_cfg(0, *MAIN)
+    ms, coll, frame = timed_calls(
+        lambda: prender.render_sharded(scene, meta, cfg, mesh, device=dev),
+        (prender, "_collect"), barrier=dist.barrier)
+    res["frame"] = frame
+    times["frame"] = (ms, coll)
+    start, meta, cfg, target, _, _ = train_setup((0, *TRAIN), dev)
+    pix = np.arange(TRAIN[0] * TRAIN[1], dtype=np.int32)
+    state = train.init_state(start, lambda ps: torch.optim.Adam(ps, lr=1e-2),
+                             device=dev)
+    step = train.make_train_step_mega2(start, meta, cfg, mesh=mesh)
+    state, loss = step(state, pix, target)
+    res.update({f"mega2/{k}": v for k, v in step_arrays(state, loss).items()})
+    box = [state]
+
+    def one_step():
+        box[0], _ = step(box[0], pix, target)
+
+    ms, coll, _ = timed_calls(one_step, (prender, "all_reduce"),
+                              barrier=dist.barrier)
+    times["mega2_step"] = (ms, coll)
+    if mesh.dims == (2, 1):
+        start, meta, cfg, target, _, _ = train_setup(SHARD_TAPED, dev)
+        st = train.init_state(start, lambda ps: torch.optim.Adam(
+            ps, lr=1e-2), device=dev)
+        tstep = train.make_train_step(start, meta, cfg, engine="taped",
+                                      mesh=mesh)
+        st, loss = tstep(st, start, np.arange(cfg.width * cfg.height),
+                         target)
+        res.update({f"taped/{k}": v for k, v in step_arrays(st, loss).items()})
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(times, f)
+    dist.destroy_process_group()
+
+
+def run_world(shape: tuple, out_dir: str) -> list:
+    """Phase 17 (c)'s world of ``shape`` as spawned processes on the card;
+    returns each rank's (arrays, times).  Fails on a rank's error or the
+    world's timeout."""
+    n_px, n_sp = shape
+    world = n_px * n_sp
+    init = f"tcp://127.0.0.1:{free_port()}"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, world, n_sp, init, out_dir))
+             for r in range(world)]
+    for pr in procs:
+        pr.start()
+    deadline = time.perf_counter() + WORLD_TIMEOUT
+    for pr in procs:
+        pr.join(max(deadline - time.perf_counter(), 1.0))
+    alive = [pr for pr in procs if pr.is_alive()]
+    for pr in alive:
+        pr.terminate()
+        pr.join(10)
+    if alive:
+        raise AssertionError(f"the {n_px}x{n_sp} world did not finish in "
+                             f"{WORLD_TIMEOUT} s")
+    codes = [pr.exitcode for pr in procs]
+    if any(codes):
+        raise AssertionError(f"the {n_px}x{n_sp} world's ranks exited "
+                             f"{codes}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            times = json.load(f)
+        out.append((dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))),
+                    times))
+    return out
+
+
+def phase_sharded(dev, card: str) -> None:
+    """Phase 17: the sample window, a world of 1 over NCCL, worlds of 2
+    over gloo on the one card, and their times."""
+    t_phase = time.perf_counter()
+    # (a) K1's sample window, on px shard 1 of 2 (interleaved ids)
+    w, h, spp = SHARD_WINDOW
+    scene, meta, cfg, _ = compile_cfg(0, w, h, spp)
+    tab = mega2.pack_mega2_tables(scene, meta, dev)
+    pix = prender.mega2_shard_pixels(w * h, 2, 1, dev)
+    fp5 = mega2.frame_params(scene, cfg, samp0=spp)
+    k1_equal(tab, fp5, pix, f"(a) K1 with samp0 {spp}, interleaved px shard "
+             f"1 of 2 at {w}x{h}@{spp} ({pix.shape[0]} ids)")
+    whole = mega2.render_radiance_cuda(tab, pix, mega2.frame_params(
+        scene, cfg.with_(samples_per_pixel=2 * spp)))
+    lo = mega2.render_radiance_cuda(tab, pix, mega2.frame_params(scene, cfg))
+    hi = mega2.render_radiance_cuda(tab, pix, fp5)
+    gap = float(((lo + hi - whole).abs() / (2 * spp)).max())
+    print(f"  (a) K1 samples 0-{spp - 1} plus {spp}-{2 * spp - 1} against "
+          f"0-{2 * spp - 1}: max |diff| of the average {gap:.2e} (bound "
+          f"5e-7 + 5e-7 rel)", flush=True)
+    if not np.allclose(((lo + hi) / (2 * spp)).cpu().numpy(),
+                       (whole / (2 * spp)).cpu().numpy(), atol=5e-7,
+                       rtol=5e-7):
+        raise AssertionError("K1's sample windows do not add up to the "
+                             "whole")
+    del tab, whole, lo, hi
+
+    # (b) a world of 1 over NCCL, in this process
+    scene, meta, cfg, _ = compile_cfg(0, *MAIN)
+    ref_frame = render(scene, meta, cfg, device=dev)
+    ref_ms = timed(lambda: render(scene, meta, cfg, device=dev))[0] * 1e3
+    distributed.initialize(init_method=f"tcp://127.0.0.1:{free_port()}",
+                           world_size=1, rank=0, device="cuda")
+    backend = dist.get_backend()
+    mesh = prender.make_mesh(device=dev)
+    ms1, _, frame = timed_calls(
+        lambda: prender.render_sharded(scene, meta, cfg, mesh, device=dev),
+        (prender, "_collect"))
+    same = np.array_equal(frame, ref_frame)
+    print(f"  (b) world 1 over {backend}, {mesh}: render_sharded at "
+          f"{MAIN[0]}x{MAIN[1]}@{MAIN[2]} {ms1:.2f} ms best of 3 (render() "
+          f"{ref_ms:.2f} ms), {'bit-identical' if same else 'DIFFERS'} to "
+          f"render()'s frame; on {card}", flush=True)
+    if backend != "nccl" or not same:
+        raise AssertionError("the world-1 sharded frame differs from "
+                             "render()'s (or the backend is not NCCL)")
+    sums = torch.as_tensor(np.ascontiguousarray(frame)).to(dev)
+    nccl = []
+    for _ in range(3):
+        got = sums.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(got)
+        parts = [torch.empty_like(got)]
+        dist.all_gather(parts, got)
+        torch.cuda.synchronize()
+        nccl.append((time.perf_counter() - t0) * 1e3)
+        if not (torch.equal(got, sums) and torch.equal(parts[0], sums)):
+            raise AssertionError("NCCL's all_reduce / all_gather changed a "
+                                 "world-1 tensor")
+    print(f"  (b) NCCL all_reduce + all_gather of the {sums.numel() * 4} "
+          f"byte frame on the world of 1: {min(nccl):.3f} ms best of 3, "
+          f"values unchanged", flush=True)
+    start, meta, tcfg, target, _, _ = train_setup((0, *TRAIN), dev)
+    pix = np.arange(TRAIN[0] * TRAIN[1], dtype=np.int32)
+    recs, one = [], {}
+    for m in (None, mesh):
+        state = train.init_state(start, lambda ps: torch.optim.Adam(
+            ps, lr=1e-2), device=dev)
+        step = train.make_train_step_mega2(start, meta, tcfg, mesh=m)
+        state, loss = step(state, pix, target)
+        recs.append(step_record(state, loss))
+        if m is None:
+            one = step_arrays(state, loss)
+    same = same_step(*recs)
+    box = [state]
+
+    def one_step():
+        box[0], _ = step(box[0], pix, target)
+
+    ms_step1 = timed_calls(one_step, (prender, "all_reduce"))[0]
+    print(f"  (b) mega2 mesh step on the 1x1 mesh: "
+          f"{'bit-identical' if same else 'DIFFERS'} to make_train_step_"
+          f"mega2 (loss, gradients, leaves after Adam); {ms_step1:.2f} ms "
+          f"best of 3", flush=True)
+    if not same:
+        raise AssertionError("the 1x1 mesh step differs from the one-device "
+                             "step")
+    dist.destroy_process_group()
+    del recs, state, step, box
+
+    # the one-device references of (c): the frame, the mega2 step (above)
+    # and the taped general step at SHARD_TAPED
+    tstart, tmeta, ttcfg, ttarget, _, _ = train_setup(SHARD_TAPED, dev)
+    st, tstep = general_step(tstart, tmeta, ttcfg, "taped", dev)
+    st, loss = tstep(st, tstart, np.arange(ttcfg.width * ttcfg.height),
+                     ttarget)
+    taped_one = step_arrays(st, loss)
+    del st, tstep
+
+    # (c) worlds of 2 over gloo, both ranks on this card
+    for shape in WORLD2_SHAPES:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            ranks = run_world(shape, d)
+        wall = time.perf_counter() - t0
+        (r0, t0s), (r1, t1s) = ranks
+        if shape[1] == 1:
+            ok = np.array_equal(r0["frame"], ref_frame)
+            kind = "bit-identical to"
+        else:
+            ok = np.allclose(r0["frame"], ref_frame, atol=5e-7, rtol=5e-7)
+            kind = "within 5e-7 of"
+        equal_ranks = all(np.array_equal(r0[k], r1[k]) for k in r0)
+        print(f"  (c) world 2 over gloo, mesh {shape}, both ranks on "
+              f"cuda:0 ({wall:.1f} s with start-up): frame {kind} "
+              f"render()'s: {ok}; ranks' frames and leaves equal: "
+              f"{equal_ranks}", flush=True)
+        if not (ok and equal_ranks):
+            raise AssertionError(f"the {shape} world's frame or ranks "
+                                 f"disagree")
+        line = steps_close({k[6:]: v for k, v in r0.items()
+                            if k.startswith("mega2/")}, one,
+                           f"{shape} mega2 mesh step")
+        print(f"  (c) mega2 mesh step at {TRAIN[0]}x{TRAIN[1]}@{TRAIN[2]}, "
+              f"K {TRAIN[3]} against the one-device step: {line}",
+              flush=True)
+        if shape == (2, 1):
+            line = steps_close({k[6:]: v for k, v in r0.items()
+                                if k.startswith("taped/")}, taped_one,
+                               f"{shape} taped mesh step")
+            print(f"  (c) taped mesh step, scene 0 at "
+                  f"{SHARD_TAPED[1]}x{SHARD_TAPED[2]}@{SHARD_TAPED[3]}, K "
+                  f"{SHARD_TAPED[4]}, against the one-device step: {line}",
+                  flush=True)
+        for t in (t0s, t1s):
+            (fm, fc), (sm, sc) = t["frame"], t["mega2_step"]
+            print(f"  (d) {shape} rank {t['rank']} {tuple(t['coord'])}: "
+                  f"frame {fm:.2f} ms (collectives {fc:.2f}, "
+                  f"{fc / fm:.3f}), mega2 step {sm:.2f} ms (collectives "
+                  f"{sc:.2f}, {sc / sm:.3f}), best of 3, host clock + "
+                  f"sync; on {card}", flush=True)
+    print(f"  (d) world 1: frame {ms1:.2f} ms, mega2 step {ms_step1:.2f} "
+          f"ms. One card: world 2 measures the sharded path's overhead "
+          f"(two contexts time-sliced on one card, gloo copying through the "
+          f"host), "
+          f"not scaling; NCCL across several cards is not measured by this "
+          f"run",
+          flush=True)
+    print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2464,6 +2857,12 @@ def main() -> int:
           f"timed against wavefront_pallas and mega2", flush=True)
     phase_bvh(dev, card)
 
+    print(f"[17] the sharded path: K1's sample window; render_sharded and "
+          f"the mega2 mesh step on a world of 1 over NCCL, and on worlds of "
+          f"2 over gloo sharing the card ({WORLD2_SHAPES}), against render() "
+          f"and the one-device steps", flush=True)
+    phase_sharded(dev, card)
+
     if any(m.startswith(("jax", "raytracinginoneweekendincuda_tpu"))
            for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
@@ -2478,6 +2877,8 @@ def main() -> int:
         "replay_fwd":
             "raytracinginoneweekendincuda_tpu/ops/pallas_replay.py:655",
         "replay_bwd":
+            "raytracinginoneweekendincuda_tpu/ops/pallas_replay.py:693",
+        "rep_sum":
             "raytracinginoneweekendincuda_tpu/ops/pallas_replay.py:693",
         "mega_bounces": "raytracinginoneweekendincuda_tpu/ops/mega.py:218",
         "closest_geo":
@@ -2499,7 +2900,8 @@ def main() -> int:
         "bound_by": r["bound"][1],
         "library_ms": r.get("library_ms"),
         **{k: r[k] for k in ("iters", "plain_iters", "cases",
-                             "without_library", "large_world") if k in r},
+                             "without_library", "large_world", "split_ms")
+           if k in r},
     } for kname, r in recs.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -96,6 +96,8 @@ struct Params {
                           // chunk boxes, then box-slab chunk boxes
   int cull_pairs;         // culled instantiations: gate sphere and loose-
   int cull_boxes;         // quad chunks / box-slab chunks
+  int samp0;              // K1: global id of local sample 0 (raygen and
+                          // every draw key on s + samp0)
 };
 
 struct Ray {

@@ -49,6 +49,10 @@
 //   by lane, the chunks its ray cannot meet.  The others run the loops
 //   over every row, as before: four instantiations, rows in shared or
 //   global memory times culled or not, chosen in the launch.
+// - A sample window, as the JAX kernel's SMEM scalar samp0: the launch
+//   renders local samples [0, spp), and raygen and every draw key on the
+//   global sample s + Params.samp0 (the sample axis of a sharded render,
+//   parallel/render.py); samp0 = 0 is the whole-frame render.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 //        -std=c++17 -shared -Xcompiler -fPIC (see utils/cuda_build.py).
@@ -143,7 +147,7 @@ mega2_render_kernel(const mega2::Params p, const int* __restrict__ pix,
     if (done) continue;
 
     if (fresh) {
-      r = mega2::raygen(p, pix_ctr, (uint32_t)s, i_f, j_f);
+      r = mega2::raygen(p, pix_ctr, (uint32_t)(s + p.samp0), i_f, j_f);
       thr[0] = thr[1] = thr[2] = 1.0f;
       acc[0] = acc[1] = acc[2] = 0.0f;
       b = 0;
@@ -151,7 +155,8 @@ mega2_render_kernel(const mega2::Params p, const int* __restrict__ pix,
     }
     int win;
     const bool alive = mega2::bounce<true, kSmemRows, kCull>(
-        p, rows, pix_ctr, (uint32_t)s, (uint32_t)b, r, thr, acc, win);
+        p, rows, pix_ctr, (uint32_t)(s + p.samp0), (uint32_t)b, r, thr, acc,
+        win);
     if (alive && b + 1 < p.max_bounces) {
       ++b;
       continue;

@@ -132,16 +132,21 @@ class FrameParams(NamedTuple):
     seed: int
     max_bounces: int
     t_min: float
+    samp0: int = 0          # global id of local sample 0 (a sample window)
 
 
-def frame_params(scene: SceneArrays, cfg: RenderConfig) -> FrameParams:
+def frame_params(scene: SceneArrays, cfg: RenderConfig,
+                 samp0: int = 0) -> FrameParams:
+    """The frame's constants; ``samp0`` makes a render of ``cfg``'s spp
+    samples cover global samples ``samp0 .. samp0 + spp - 1`` (the sample
+    axis of a sharded render; the JAX kernel's SMEM scalar ``samp0``)."""
     return FrameParams(
         cam=camera_tuple(scene.camera),
         background=tuple(float(x)
                          for x in np.asarray(scene.camera.background)),
         width=cfg.width, height=cfg.height, spp=cfg.samples_per_pixel,
         seed=cfg.seed, max_bounces=cfg.max_bounces,
-        t_min=float(np.float32(cfg.t_min)))
+        t_min=float(np.float32(cfg.t_min)), samp0=int(samp0))
 
 
 # --------------------------------------------------------------------------
@@ -968,22 +973,23 @@ def cull_stats() -> dict:
 def render_radiance_plain(tab: Mega2Tables, pix: torch.Tensor,
                           fp: FrameParams, *, chunk: int = 256,
                           stats: dict | None = None):
-    """Radiance summed over ``fp.spp`` samples for pixel ids ``pix`` [P]
-    (ids < 0 give zeros) -> [P, 3] f32.  Plain PyTorch, batched over rays;
-    rays that end are dropped from the batch (each ray's arithmetic is
-    independent of the others, so this cannot change a value).  Culled
-    chunks gate each ray's result by its own slab test, as K1 does lane by
-    lane; the TPU kernel runs a chunk for a whole tile of rays if any of
-    them may meet its box, which finds the same winners wherever the f32
-    hit lies in its chunk's box (a rounding hit on a sphere the ray misses
-    can lie outside it: ROADMAP.md, queue 3).  ``stats`` (from
+    """Radiance summed over ``fp.spp`` samples (global samples ``fp.samp0
+    ..``) for pixel ids ``pix`` [P] (ids < 0 give zeros) -> [P, 3] f32.
+    Plain PyTorch, batched over rays; rays that end are dropped from the
+    batch (each ray's arithmetic is independent of the others, so this
+    cannot change a value).  Culled chunks gate each ray's result by its
+    own slab test, as K1 does lane by lane; the TPU kernel runs a chunk
+    for a whole tile of rays if any of them may meet its box, which finds
+    the same winners wherever the f32 hit lies in its chunk's box (a
+    rounding hit on a sphere the ray misses can lie outside it:
+    ROADMAP.md, queue 3).  ``stats`` (from
     `cull_stats`) accumulates the counts of the run."""
     dev = pix.device
     P = pix.shape[0]
     lane = torch.zeros((P, 3), dtype=torch.float32, device=dev)
     ids = (pix >= 0).nonzero()[:, 0]
     pix_v = pix[ids]
-    for s in range(fp.spp):
+    for s in range(fp.samp0, fp.samp0 + fp.spp):
         o, d, tm, pix_ctr = generate_rays(fp.cam, pix_v, s, fp.width,
                                           fp.height, fp.seed)
         samp = torch.full_like(pix_ctr, s)
@@ -1030,6 +1036,7 @@ class _Params(ctypes.Structure):
         ("max_bounces", ctypes.c_int), ("seed", ctypes.c_uint32),
         ("cull_s", ctypes.c_void_p), ("cull_q", ctypes.c_void_p),
         ("cull_pairs", ctypes.c_int), ("cull_boxes", ctypes.c_int),
+        ("samp0", ctypes.c_int),
     ]
 
 
@@ -1162,7 +1169,8 @@ def _params(tab: Mega2Tables, fp: FrameParams) -> _Params:
         spp=fp.spp, max_bounces=fp.max_bounces,
         seed=fp.seed & 0xFFFFFFFF,
         cull_s=tab.cull_s.data_ptr(), cull_q=tab.cull_q.data_ptr(),
-        cull_pairs=int(tab.cull_pairs), cull_boxes=int(tab.cull_boxes))
+        cull_pairs=int(tab.cull_pairs), cull_boxes=int(tab.cull_boxes),
+        samp0=fp.samp0)
 
 
 def _check_tables(tab: Mega2Tables, dev) -> None:
@@ -1257,21 +1265,25 @@ def trace_tapes(tab: Mega2Tables, pix: torch.Tensor, samp: torch.Tensor,
     raise ValueError(f"no mega2 trace for device {pix.device}")
 
 
-def tape_lanes(pix_ids: torch.Tensor, n_samples: int):
+def tape_lanes(pix_ids: torch.Tensor, n_samples: int, samp0: int = 0):
     """Sample-major lanes of a tape batch: lane ``s*B + b`` traces pixel
-    ``pix_ids[b]`` at sample ``s``.  Returns (pix [L], samp [L]) int32."""
+    ``pix_ids[b]`` at sample ``samp0 + s``.  Returns (pix [L], samp [L])
+    int32."""
     B = pix_ids.shape[0]
     lane = torch.arange(B * n_samples, dtype=torch.int64,
                         device=pix_ids.device)
-    return pix_ids.to(torch.int32)[lane % B], (lane // B).to(torch.int32)
+    return pix_ids.to(torch.int32)[lane % B], \
+        (lane // B + samp0).to(torch.int32)
 
 
 def mega2_tapes(scene: SceneArrays, meta: SceneMeta, pix_ids, n_samples: int,
                 *, width: int, height: int, max_bounces: int, t_min: float,
                 seed: int, id_space: str = "global", device="cuda",
-                tab: Mega2Tables | None = None) -> torch.Tensor:
+                tab: Mega2Tables | None = None,
+                samp0: int = 0) -> torch.Tensor:
     """Winner tapes [n_samples, max_bounces, B] for samples
-    0..n_samples-1 of the pixel ids [B], all samples in one trace.
+    samp0..samp0+n_samples-1 of the pixel ids [B], all samples in one
+    trace.
 
     ``id_space="global"`` maps kernel rows to the scene ids of the replay
     (spheres [0, S), quads [S, S+Q), media S+Q+m); ``"kernel"`` keeps the
@@ -1287,7 +1299,7 @@ def mega2_tapes(scene: SceneArrays, meta: SceneMeta, pix_ids, n_samples: int,
     fp = frame_params(scene, cfg)
     pix_ids = torch.as_tensor(np.asarray(pix_ids, np.int32), device=dev)
     B = pix_ids.shape[0]
-    pix, samp = tape_lanes(pix_ids, n_samples)
+    pix, samp = tape_lanes(pix_ids, n_samples, samp0)
     tape = trace_tapes(tab, pix, samp, fp)
     if id_space == "global":
         tape = torch.where(tape >= 0, tab.remap[tape.clamp_min(0).long()],

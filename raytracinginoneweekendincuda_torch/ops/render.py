@@ -45,26 +45,46 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def render_chunk(scene, meta, pix: torch.Tensor, *, width: int, height: int,
-                 spp: int, seed: int, max_bounces: int, t_min: float,
-                 differentiable: bool = False, gamma: bool = True,
-                 engine: str = "bruteforce", bvh=None):
-    """Average radiance [P, 3] over ``spp`` samples for one pixel chunk
-    ``pix`` [P] of a tensor scene (`hit.scene_tensors`), gamma applied
-    when ``gamma``; ``differentiable`` runs the integrator's scan form;
-    ``bvh`` the BVH arrays of engine ``bvh`` (`scene/bvh.py`)."""
+def chunk_sums(scene, meta, pix: torch.Tensor, samples, *, width: int,
+               height: int, seed: int, max_bounces: int, t_min: float,
+               differentiable: bool = False, engine: str = "bruteforce",
+               bvh=None) -> torch.Tensor:
+    """Radiance sums [P, 3] over the sample ids ``samples`` (in order) for
+    one pixel chunk ``pix`` [P] of a tensor scene (`hit.scene_tensors`);
+    ``differentiable`` runs the integrator's scan form; ``bvh`` the BVH
+    arrays of engine ``bvh`` (`scene/bvh.py`)."""
     from .dispatch import trace_dispatch
     from .raygen import generate_rays
 
     acc = torch.zeros((pix.shape[0], 3), dtype=scene.camera.origin.dtype,
                       device=pix.device)
-    for s in range(spp):
+    for s in samples:
         o, d, time, pix_ctr = generate_rays(scene.camera, pix, s, width,
                                             height, seed)
         acc = acc + trace_dispatch(scene, meta, o, d, time, pix_ctr, s,
                                    engine=engine, max_bounces=max_bounces,
                                    t_min=t_min,
                                    differentiable=differentiable, bvh=bvh)
+    return acc
+
+
+def render_chunk(scene, meta, pix: torch.Tensor, *, width: int, height: int,
+                 spp: int, seed: int, max_bounces: int, t_min: float,
+                 differentiable: bool = False, gamma: bool = True,
+                 engine: str = "bruteforce", bvh=None):
+    """Average radiance [P, 3] over ``spp`` samples for one pixel chunk
+    ``pix`` [P] (`chunk_sums` over samples 0 .. spp - 1), gamma applied
+    when ``gamma``."""
+    acc = chunk_sums(scene, meta, pix, range(spp), width=width,
+                     height=height, seed=seed, max_bounces=max_bounces,
+                     t_min=t_min, differentiable=differentiable,
+                     engine=engine, bvh=bvh)
+    return average_chunk(acc, spp, gamma)
+
+
+def average_chunk(acc: torch.Tensor, spp: int, gamma: bool) -> torch.Tensor:
+    """The chunked engines' epilogue: the sample average of the radiance
+    sums ``acc``, gamma-2 sqrt (in f64) when ``gamma``."""
     col = acc / float(spp)
     if gamma:
         col = torch.sqrt(torch.clamp_min(col, 0.0).double()).to(col.dtype)

@@ -2,8 +2,9 @@
 
 Counterpart of ``raytracinginoneweekendincuda_tpu/ops/pallas_replay.py``.
 K3 (``csrc/replay_fwd.cu``) replaces ``_fwd_kernel_factory`` and K4
-(``csrc/replay_bwd.cu``) replaces ``_bwd_kernel_factory``; both share the
-bounce of ``csrc/replay_bounce.cuh``.  `ReplayFunction` is the pair as one
+(``csrc/replay_bwd.cu``, with its fixed-order sum ``csrc/rep_sum.cu``)
+replaces ``_bwd_kernel_factory``; K3 and K4 share the bounce of
+``csrc/replay_bounce.cuh``.  `ReplayFunction` is the pair as one
 ``torch.autograd.Function`` (the TPU's ``jax.custom_vjp``): its forward
 launches K3, its backward launches K4 and returns the cotangents of the
 table, the rays and the background.
@@ -19,6 +20,7 @@ import ctypes
 
 import torch
 
+from .hit import row_sum
 from .replay import REP_COLS, ReplayTables, replay_plain
 
 
@@ -62,42 +64,113 @@ def load_fwd_kernel():
                   ctypes.POINTER(ctypes.c_int), _P])
 
 
-# K4's largest block (``kBlock`` in csrc/replay_bwd.cu; the loader checks
-# the two agree) and the words of a bounce state (o, d, thr).
-BWD_BLOCK = 384
-STATE_WORDS = 9
-
-
-def bwd_rep_in_shared(np_rows: int, K: int, smem_optin: int,
-                      threads: int = BWD_BLOCK) -> bool:
-    """Whether K4 sums d_rep in shared memory: its bounce states (K x 9
-    words a thread) and the table's cotangent (np_rows x 27 words) fit a
-    block's opt-in shared memory.  Otherwise the other instantiation adds
-    into the global d_rep.  Scene 0 (512 rows) at K 8 fits the H100's
-    232,448 bytes; scene 9 (3,522 rows) does not."""
-    need = 4 * (STATE_WORDS * K * threads + REP_COLS * np_rows)
-    return need <= smem_optin
-
-
 def load_bwd_kernel():
     """Build (at first use) and load K4; returns (CDLL, build record)."""
     lib, record = _load("replay_bwd", "replay_bwd_launch",
                         [ctypes.POINTER(_Params), _P, _P, _P, _P, _P, _P,
-                         _P, _P, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                         _P])
-    for name in ("replay_bwd_kmax", "replay_bwd_block",
-                 "replay_bwd_smem_optin"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
-    if lib.replay_bwd_block() != BWD_BLOCK:
-        raise RuntimeError("K4's block and BWD_BLOCK differ")
+                         _P, _P, _P, ctypes.POINTER(ctypes.c_int), _P])
+    lib.replay_bwd_kmax.argtypes = []
+    lib.replay_bwd_kmax.restype = ctypes.c_int
     return lib, record
 
 
-def bwd_smem_optin() -> int:
-    """The opt-in shared memory a block may use on the current CUDA
-    device, bytes (K4's query, for `bwd_rep_in_shared`)."""
-    return load_bwd_kernel()[0].replay_bwd_smem_optin()
+# sorted entries a chunk of the fixed-order sum (``kChunk`` in
+# csrc/rep_sum.cu; the loader checks the two agree)
+REP_CHUNK = 2048
+
+
+def load_rep_sum_kernel():
+    """Build (at first use) and load K4's fixed-order sum; returns (CDLL,
+    build record)."""
+    from ..utils.cuda_build import load_library
+
+    lib, record = load_library("rep_sum")
+    lib.rep_sum_launch.argtypes = [_P, _P, _P, _P, ctypes.c_int,
+                                   ctypes.c_int, _P, _P, _P]
+    lib.rep_sum_launch.restype = ctypes.c_int
+    lib.rep_sum_chunk.argtypes = []
+    lib.rep_sum_chunk.restype = ctypes.c_int
+    if lib.rep_sum_chunk() != REP_CHUNK:
+        raise RuntimeError("rep_sum.cu's chunk and REP_CHUNK differ")
+    return lib, record
+
+
+def rep_sum_plain(keys: torch.Tensor, rows: torch.Tensor,
+                  np_rows: int) -> torch.Tensor:
+    """d_rep [np_rows, 27] from K4's per lane-bounce slots: ``keys`` [K, N]
+    int32, the winner row of each slot (-1: none), and ``rows`` [K, N,
+    27], its row cotangent (read only where the key is >= 0).  Each row
+    sums its slots in an order fixed by the keys alone (`hit.row_sum`: a
+    stable sort, chunk sums), so the result repeats bit for bit; the
+    slots without a row go to an extra bucket that is dropped.  The plain
+    version of `rep_sum_cuda`."""
+    ids = torch.where(keys >= 0, keys, np_rows).reshape(-1).long()
+    return row_sum(ids, rows.reshape(-1, REP_COLS), np_rows + 1)[:np_rows]
+
+
+def rep_sum_chunks(keys: torch.Tensor, np_rows: int):
+    """The host half of `rep_sum_cuda`: (order [S] int64, the stable sort
+    of the keys (-1 after every row); starts [np_rows + 1] int32, row r's
+    sorted positions starts[r] .. starts[r + 1] - 1; chunk_first
+    [np_rows + 1] int32, the chunks of `REP_CHUNK` sorted entries before
+    row r; max_chunks, a bound of the chunks fixed by the shapes)."""
+    dev = keys.device
+    k = torch.where(keys >= 0, keys, np_rows).reshape(-1).to(torch.int32)
+    seg, order = torch.sort(k, stable=True)
+    starts = torch.searchsorted(
+        seg, torch.arange(np_rows + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    nch = (starts[1:] - starts[:-1] + (REP_CHUNK - 1)) // REP_CHUNK
+    chunk_first = torch.zeros(np_rows + 1, dtype=torch.int32, device=dev)
+    chunk_first[1:] = torch.cumsum(nch, 0, dtype=torch.int32)
+    return order, starts, chunk_first, -(-k.numel() // REP_CHUNK) + np_rows
+
+
+def rep_sum_cuda(keys: torch.Tensor, rows: torch.Tensor,
+                 np_rows: int) -> torch.Tensor:
+    """`rep_sum_plain`'s d_rep on the card (csrc/rep_sum.cu): the keys'
+    stable sort and chunk bounds (`rep_sum_chunks`), then a block a chunk
+    of 2048 sorted entries and a thread a (row, column) over its chunks,
+    every sum in an order fixed by the keys.  Launches on the current
+    stream, no synchronisation."""
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"rep_sum_cuda needs CUDA tensors, got {dev}")
+    if keys.dtype != torch.int32 or rows.dtype != torch.float32 \
+            or rows.shape != (*keys.shape, REP_COLS) or rows.device != dev:
+        raise ValueError("keys must be int32 [K, N] and rows f32 "
+                         "[K, N, 27] on one device")
+    rows = rows.contiguous()
+    lib, _ = load_rep_sum_kernel()
+    order, starts, chunk_first, max_chunks = rep_sum_chunks(keys, np_rows)
+    partial = torch.empty((max_chunks, REP_COLS), dtype=torch.float32,
+                          device=dev)
+    d_rep = torch.empty((np_rows, REP_COLS), dtype=torch.float32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rep_sum_launch(rows.data_ptr(), order.data_ptr(),
+                                 starts.data_ptr(), chunk_first.data_ptr(),
+                                 np_rows, max_chunks, partial.data_ptr(),
+                                 d_rep.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"rep_sum kernel launch failed: CUDA error {err}")
+    rep_sum_cuda.launches += 1
+    return d_rep
+
+
+rep_sum_cuda.launches = 0
+
+
+def rep_sum(keys: torch.Tensor, rows: torch.Tensor,
+            np_rows: int) -> torch.Tensor:
+    """K4's d_rep from its slots: the plain version for CPU tensors, the
+    kernel for CUDA tensors.  No fallback between them."""
+    if keys.device.type == "cpu":
+        return rep_sum_plain(keys, rows, np_rows)
+    if keys.device.type == "cuda":
+        return rep_sum_cuda(keys, rows, np_rows)
+    raise ValueError(f"no rep_sum for device {keys.device}")
 
 
 def _params(tt: ReplayTables, rep, bg, n: int, K: int, sample: int,
@@ -170,15 +243,13 @@ replay_fwd_cuda.launches = 0
 replay_fwd_cuda.shape = None
 
 
-def replay_bwd_cuda(tt: ReplayTables, rep, rays, tape, pix_ctr, sample: int,
-                    bg, g, *, t_min: float):
-    """K4: (d_rep [NP, 27], d_rays [N, 7], d_bg [N, 3]) for the radiance
-    cotangent ``g`` [N, 3].  d_rep is summed over lanes with atomics (in
-    shared memory first where `bwd_rep_in_shared` says it fits), so its
-    last bits vary from run to run; d_rays and d_bg do not.
-    ``replay_bwd_cuda.shape`` holds the last launch's (blocks, threads a
-    block, shared bytes) and ``replay_bwd_cuda.rep_shared`` whether it
-    summed d_rep in shared memory."""
+def replay_bwd_slots_cuda(tt: ReplayTables, rep, rays, tape, pix_ctr,
+                          sample: int, bg, g, *, t_min: float):
+    """K4's launch: (keys [K, N] int32, rows [K, N, 27], d_rays [N, 7],
+    d_bg [N, 3]) for the radiance cotangent ``g`` [N, 3] (see
+    `rep_sum`; the rows of slots whose key is -1 are not written).
+    ``replay_bwd_slots_cuda.shape`` holds the last launch's (blocks,
+    threads a block, shared bytes)."""
     rep, rays, tape, pix_ctr, bg, g = (x.contiguous() for x in
                                        (rep, rays, tape, pix_ctr, bg, g))
     _check(tt, rep, rays, tape, pix_ctr, bg)
@@ -191,32 +262,44 @@ def replay_bwd_cuda(tt: ReplayTables, rep, rays, tape, pix_ctr, sample: int,
         raise ValueError(f"the replay backward keeps at most "
                          f"{lib.replay_bwd_kmax()} bounces, got {K}")
     dev = rays.device
-    d_rep = torch.zeros((tt.NP, REP_COLS), dtype=torch.float32, device=dev)
     d_rays = torch.empty((n, 7), dtype=torch.float32, device=dev)
     d_bg = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    keys = torch.empty((K, n), dtype=torch.int32, device=dev)
+    rows = torch.empty((K, n, REP_COLS), dtype=torch.float32, device=dev)
     queue = torch.empty(1, dtype=torch.int32, device=dev)
     prm = _params(tt, rep, bg, n, K, sample, t_min)
     shape = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
-        rep_shared = bwd_rep_in_shared(tt.NP, K, bwd_smem_optin())
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.replay_bwd_launch(
             ctypes.byref(prm), rays.data_ptr(), tape.data_ptr(),
             pix_ctr.data_ptr(), g.data_ptr(), d_rays.data_ptr(),
-            d_rep.data_ptr(), d_bg.data_ptr(), queue.data_ptr(),
-            int(rep_shared), shape, stream)
+            d_bg.data_ptr(), rows.data_ptr(), keys.data_ptr(),
+            queue.data_ptr(), shape, stream)
     if err != 0:
         raise RuntimeError(f"replay backward kernel launch failed: CUDA "
                            f"error {err}")
+    replay_bwd_slots_cuda.shape = tuple(shape)
+    return keys, rows, d_rays, d_bg
+
+
+replay_bwd_slots_cuda.shape = None
+
+
+def replay_bwd_cuda(tt: ReplayTables, rep, rays, tape, pix_ctr, sample: int,
+                    bg, g, *, t_min: float):
+    """K4: (d_rep [NP, 27], d_rays [N, 7], d_bg [N, 3]) for the radiance
+    cotangent ``g`` [N, 3]: the kernel's per lane-bounce slots
+    (`replay_bwd_slots_cuda`) summed by `rep_sum_cuda` in an order fixed
+    by the data, so all three repeat bit for bit from run to run.
+    Launches on the current stream, no synchronisation."""
+    keys, rows, d_rays, d_bg = replay_bwd_slots_cuda(
+        tt, rep, rays, tape, pix_ctr, sample, bg, g, t_min=t_min)
     replay_bwd_cuda.launches += 1
-    replay_bwd_cuda.shape = tuple(shape)
-    replay_bwd_cuda.rep_shared = rep_shared
-    return d_rep, d_rays, d_bg
+    return rep_sum_cuda(keys, rows, tt.NP), d_rays, d_bg
 
 
 replay_bwd_cuda.launches = 0
-replay_bwd_cuda.shape = None
-replay_bwd_cuda.rep_shared = None
 
 
 class ReplayFunction(torch.autograd.Function):

@@ -33,13 +33,19 @@ from .raygen import generate_rays
 
 def render_wavefront_frame(scene, meta, hit_fn, *, width: int, height: int,
                            spp: int, seed: int, max_bounces: int,
-                           t_min: float, pool: int) -> torch.Tensor:
-    """Radiance SUM over the ``spp`` samples -> [W*H, 3] in the scene's
-    dtype, for a tensor scene (`hit.scene_tensors`) and its closest-hit
-    function ``hit_fn(o, d, time, t_min, u_med) -> HitRecord``."""
+                           t_min: float, pool: int,
+                           npix_local: int | None = None, pix_base: int = 0,
+                           samp_base: int = 0) -> torch.Tensor:
+    """Radiance SUM over samples [samp_base, samp_base + spp) -> [npix, 3]
+    in the scene's dtype, for a tensor scene (`hit.scene_tensors`) and its
+    closest-hit function ``hit_fn(o, d, time, t_min, u_med) ->
+    HitRecord``.  ``npix`` is W*H, or ``npix_local``: a contiguous window
+    of the frame (a sharded render, `parallel/render.py`), whose local
+    pixel k is global pixel ``pix_base + k`` in the RNG counters and the
+    camera rays (JAX ``render_wavefront_frame``'s arguments)."""
     dtype = scene.camera.origin.dtype
     dev = scene.camera.origin.device
-    npix = width * height
+    npix = npix_local if npix_local is not None else width * height
     n_work = npix * spp
     P = -(-min(pool, n_work) // 512) * 512   # the JAX engine's lane tiling
 
@@ -62,8 +68,9 @@ def render_wavefront_frame(scene, meta, hit_fn, *, width: int, height: int,
         # 2. refill finished lanes with fresh work
         take, new_pix, new_samp, next_ray, pix_id = refill_lanes(
             done, next_ray, pix_id, npix=npix, n_work=n_work)
-        no, nd, ntime, npc = generate_rays(scene.camera, new_pix, new_samp,
-                                           width, height, seed)
+        new_samp = new_samp + samp_base
+        no, nd, ntime, npc = generate_rays(scene.camera, new_pix + pix_base,
+                                           new_samp, width, height, seed)
         t2 = take[:, None]
         o = torch.where(t2, no, o)
         d = torch.where(t2, nd, d)
@@ -86,29 +93,35 @@ def render_wavefront_frame(scene, meta, hit_fn, *, width: int, height: int,
 _BVH_CACHE: dict = {}
 
 
-def render_wavefront(scene, meta, cfg, *, device) -> torch.Tensor:
-    """Radiance sums [H*W, 3] of the whole frame through the wavefront
-    engine ``cfg.engine`` (``wavefront``, ``wavefront_bvh`` or
-    ``wavefront_pallas``) on ``device``, in the scene's dtype.  The host
-    BVH build of ``wavefront_bvh`` is cached per scene (`cached_pack`,
-    keyed on every leaf), as the JAX engine's ``_accel_for``."""
+def wavefront_hit_fn(scene, meta, engine: str, device):
+    """(tensor scene, closest-hit function) of wavefront engine ``engine``
+    (``wavefront``, ``wavefront_bvh`` or ``wavefront_pallas``) on
+    ``device``.  The host BVH build of ``wavefront_bvh`` is cached per
+    scene (`cached_pack`, keyed on every leaf), as the JAX engine's
+    ``_accel_for``."""
     st = hit_ops.scene_tensors(scene, device)
-    if cfg.engine == "wavefront_bvh":
+    if engine == "wavefront_bvh":
         from ..scene.bvh import build_scene_bvh
         from .bvh_engine import bvh_hit_fn
 
-        bvh = cached_pack(_BVH_CACHE, scene, cfg.engine,
+        bvh = cached_pack(_BVH_CACHE, scene, engine,
                           lambda: build_scene_bvh(scene))
-        hit_fn = bvh_hit_fn(st, meta, bvh)
-    elif cfg.engine == "wavefront_pallas":
+        return st, bvh_hit_fn(st, meta, bvh)
+    if engine == "wavefront_pallas":
         from .pallas_hit import make_pallas_hit_fn, pack_geometry
 
-        hit_fn = make_pallas_hit_fn(st, meta,
-                                    *pack_geometry(scene, device))
-    elif cfg.engine == "wavefront":
-        hit_fn = hit_ops.brute_force_hit_fn(st, meta)
-    else:
-        raise ValueError(f"not a wavefront engine: {cfg.engine!r}")
+        return st, make_pallas_hit_fn(st, meta,
+                                      *pack_geometry(scene, device))
+    if engine == "wavefront":
+        return st, hit_ops.brute_force_hit_fn(st, meta)
+    raise ValueError(f"not a wavefront engine: {engine!r}")
+
+
+def render_wavefront(scene, meta, cfg, *, device) -> torch.Tensor:
+    """Radiance sums [H*W, 3] of the whole frame through the wavefront
+    engine ``cfg.engine`` (`wavefront_hit_fn`) on ``device``, in the
+    scene's dtype."""
+    st, hit_fn = wavefront_hit_fn(scene, meta, cfg.engine, device)
     return render_wavefront_frame(
         st, meta, hit_fn, width=cfg.width, height=cfg.height,
         spp=cfg.samples_per_pixel, seed=cfg.seed,

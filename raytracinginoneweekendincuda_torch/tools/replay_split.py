@@ -47,21 +47,17 @@ K4 (``csrc/replay_bwd.cu``):
 - ``parent, states in shared memory``: the states moved to dynamic shared
   memory in this package's [K][9][threads] layout, nothing else;
 - ``parent, 128 registers``: ``__launch_bounds__(128, 4)``;
-- ``change``: this package's K4 (sums d_rep in shared memory; also timed
-  with d_rep in global memory, its other instantiation);
-- ``change, no d_rep atomics``, as for the parent;
-- ``change, no flush atomics``: the block's final adds of its shared
-  d_rep into the global one replaced by a store made only for an
-  impossible value, so that the flush's cost shows apart;
-- ``change, warp-uniform shuffle sums``: add_row's shared-memory path with
-  the parent's shuffle sum where a warp's hits share one row;
+- ``change``: this package's K4 (each lane-bounce's row cotangent
+  written to its own slot, then summed in a fixed order by
+  ``ops/replay_cuda.rep_sum``; every K4 variant of this package is timed
+  with that sum);
+- ``change, no row stores``: the slots' row stores made only for an
+  impossible value, so that their cost shows apart;
 - ``change, 320 threads`` / ``448 threads``: other blocks (448 caps the
   registers at 146);
 - ``change, texture columns by index``: built against the parent's
   ``replay_bounce.cuh``, whose texture adjoint indexes the table row at
-  run time;
-- ``change, groups of 4``: the global instantiation's shuffle sum for
-  groups of 4 lanes that share a row, not 8.
+  run time.
 
 Inputs: sample 0 of scene 0 at 640x360, K 8, the tape traced by K2
 (``kernel_times.replay_times``'s).  Each variant is timed by
@@ -137,53 +133,7 @@ def _parent_smem(src: str, change: str) -> str:
                 "<<<grid, kBlock, (size_t)params->K * 9 * kBlock * 4,")
 
 
-def _change_sink(src: str) -> str:
-    src = _sub(src, "const float v[replay::REP_COLS]) {",
-               "const float v[replay::REP_COLS], float& sink) {")
-    src = _sub(src, "          atomicAdd(acc + (size_t)row * replay::REP_COLS"
-               " + c, x);", "          sink = sink + x;")
-    src = _sub(src, "        atomicAdd(acc + (size_t)key * replay::REP_COLS "
-               "+ c, v[c]);", "        sink = sink + v[c];")
-    src = _sub(src, "add_row<kSmemRep>(acc, key, g.row);",
-               "add_row<kSmemRep>(acc, key, g.row, sink);")
-    src = _sub(src, "  extern __shared__ float smem[];\n",
-               "  extern __shared__ float smem[];\n  float sink = 0.0f;\n")
-    return _sub(src, "  if (kSmemRep) {\n    __syncthreads();\n",
-                SINK_END + "  if (kSmemRep) {\n    __syncthreads();\n")
-
-
-UNIFORM = """template <bool kSmemRep>
-__device__ __forceinline__ void add_row(float* acc, int key,
-                                        const float v[replay::REP_COLS]) {
-  const int kmax = __reduce_max_sync(kFull, key);
-  if (kmax < 0) return;
-  if (__all_sync(kFull, key < 0 || key == kmax)) {
-#pragma unroll
-    for (int c = 0; c < replay::REP_COLS; ++c) {
-      float x = key >= 0 ? v[c] : 0.0f;
-      if (!__any_sync(kFull, x != 0.0f)) continue;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        x = x + __shfl_xor_sync(kFull, x, off);
-      if ((threadIdx.x & 31) == 0)
-        atomicAdd(acc + (size_t)kmax * replay::REP_COLS + c, x);
-    }
-  } else if (key >= 0) {
-#pragma unroll
-    for (int c = 0; c < replay::REP_COLS; ++c)
-      if (v[c] != 0.0f)
-        atomicAdd(acc + (size_t)key * replay::REP_COLS + c, v[c]);
-  }
-}
-
-"""
-
-
-def _change_uniform(src: str) -> str:
-    a = src.index("template <bool kSmemRep>\n__device__ __forceinline__ "
-                  "void add_row")
-    b = src.index("template <bool kSmemRep>\n__global__")
-    return src[:a] + UNIFORM + src[b:]
+ROW_STORE = "        if (key >= 0) {\n          float* o = rows"
 
 
 def k4_parent_variants(parent_src: str, change_src: str) -> dict:
@@ -206,23 +156,15 @@ def k4_change_variants(src: str) -> dict:
     blk = "constexpr int kBlock = 384;"
     return {
         "change": (src, "change", "change"),
-        "change, no d_rep atomics": (_change_sink(src), "change", "change"),
-        "change, no flush atomics": (_sub(
-            src, "if (v != 0.0f) atomicAdd(d_rep + i, v);",
-            "if (v == 1.2345e30f) d_rep[i] = v;"), "change", "change"),
-        "change, warp-uniform shuffle sums": (_change_uniform(src), "change",
-                                              "change"),
+        "change, no row stores": (_sub(
+            src, ROW_STORE, "        if (key >= 0 && g.row[0] == 1.2345e30f)"
+            " {\n          float* o = rows"), "change", "change"),
         "change, 320 threads": (_sub(src, blk, "constexpr int kBlock = 320;"),
                                 "change", "change"),
         "change, 448 threads": (_sub(src, blk, "constexpr int kBlock = 448;"),
                                 "change", "change"),
         "change, texture columns by index": (src, "parent", "change"),
-        "change, groups of 4": (_sub(src, "constexpr int kGroup = 8;",
-                                     "constexpr int kGroup = 4;"),
-                                "change", "change"),
     }
-
-
 
 
 # ---- K3 ----------------------------------------------------------------
@@ -464,46 +406,43 @@ def _k3_runs(libs: dict, vs: dict, dev):
 
 
 def _k4_runs(libs: dict, vs: dict, dev):
-    """The same for K4; the reference is this package's K4's output."""
+    """The same for K4; the reference is this package's K4's output.  A
+    variant of this package returns the slots' sum (`rc.rep_sum`)."""
     tt, rep, rays, tape, pc, bg, g, t_min = _inputs(dev)
     n, K = rays.shape[0], tape.shape[0]
     ref = rc.replay_bwd_cuda(tt, rep, rays, tape, pc, 0, bg, g, t_min=t_min)
     prm = rc._params(tt, rep, bg, n, K, 0, t_min)
     stream = torch.cuda.current_stream(dev).cuda_stream
     P = ctypes.c_void_p
-    runs = []
     for name, (lib, _) in libs.items():
-        sig = vs[name][2]
         lib.replay_bwd_launch.restype = ctypes.c_int
-        lib.replay_bwd_launch.argtypes = [ctypes.POINTER(rc._Params)] + [
-            P] * 7 + ([] if sig == "parent" else
-                      [P, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]) + [P]
-        if sig == "parent":
-            runs.append((name, None))
-        else:
-            threads = int(re.search(r"constexpr int kBlock = (\d+);",
-                                    vs[name][0]).group(1))
-            runs += [(name, flag) for flag in (1, 0)
-                     if not flag or rc.bwd_rep_in_shared(
-                         tt.NP, K, rc.bwd_smem_optin(), threads)]
+        lib.replay_bwd_launch.argtypes = [ctypes.POINTER(rc._Params)] + (
+            [P] * 7 if vs[name][2] == "parent" else
+            [P] * 9 + [ctypes.POINTER(ctypes.c_int)]) + [P]
 
-    def call(name, flag):
+    def call(name, _flag):
         lib = libs[name][0]
-        d_rep = torch.zeros_like(rep)
         d_rays = torch.empty((n, 7), device=dev)
         d_bg = torch.empty((n, 3), device=dev)
         args = [ctypes.byref(prm), rays.data_ptr(), tape.data_ptr(),
-                pc.data_ptr(), g.data_ptr(), d_rays.data_ptr(),
-                d_rep.data_ptr(), d_bg.data_ptr()]
-        if flag is not None:
+                pc.data_ptr(), g.data_ptr(), d_rays.data_ptr()]
+        if vs[name][2] == "parent":
+            d_rep = torch.zeros_like(rep)
+            args += [d_rep.data_ptr(), d_bg.data_ptr()]
+        else:
+            keys = torch.empty((K, n), dtype=torch.int32, device=dev)
+            rows = torch.empty((K, n, rc.REP_COLS), device=dev)
             queue = torch.empty(1, dtype=torch.int32, device=dev)
-            args += [queue.data_ptr(), flag, (ctypes.c_int * 3)()]
+            args += [d_bg.data_ptr(), rows.data_ptr(), keys.data_ptr(),
+                     queue.data_ptr(), (ctypes.c_int * 3)()]
         err = lib.replay_bwd_launch(*args, stream)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err}")
+        if vs[name][2] != "parent":
+            d_rep = rc.rep_sum(keys, rows, tt.NP)
         return d_rep, d_rays, d_bg
 
-    return runs, call, ref
+    return [(name, None) for name in libs], call, ref
 
 
 def _k3_check(got, ref) -> dict:
@@ -553,10 +492,8 @@ def main(argv=None) -> dict:
     times, checks = {}, {}
     for order in (runs, runs[::-1]):
         for name, flag in order:
-            key = name if flag is None else \
-                f"{name} ({'shared' if flag else 'global'} d_rep)"
-            checks[key] = check(call(name, flag), ref)
-            times.setdefault(key, []).append(
+            checks[name] = check(call(name, flag), ref)
+            times.setdefault(name, []).append(
                 best_ms(lambda: call(name, flag), dev, 5, 10))
     print(f"  {args[0].upper()} at the step's shape, ms (two rounds):",
           flush=True)

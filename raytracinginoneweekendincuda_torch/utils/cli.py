@@ -2,16 +2,25 @@
 
 Same flags as ``raytracinginoneweekendincuda_tpu.utils.cli`` (defaults
 follow the reference: 1440x720, scene 9, per-scene spp, seed 1984), except
-that ``--device {cuda,cpu}`` replaces ``--cpu``, and ``--sharded`` and
-``--profile`` are not ported.  ``--device cuda`` (the default) renders on
-the card -- the engines' CUDA kernels (K1 for ``mega2``, K5 for ``mega``,
+that ``--device {cuda,cpu}`` replaces ``--cpu``, and ``--profile`` (a
+``jax.profiler`` trace) is not ported.  ``--device cuda`` (the default)
+renders on the card -- the engines' CUDA kernels (K1 for ``mega2``, K5 for ``mega``,
 K6 for ``wavefront_pallas``) and plain PyTorch around them and for the
 other engines (``wavefront``, ``bruteforce`` and the BVH engines ``bvh``
 and ``wavefront_bvh``) -- and raises when there is no CUDA device;
 ``--device cpu`` renders with the plain PyTorch versions.
 
+``--sharded`` renders over the ranks of ``torch.distributed.run``
+(`parallel/render.render_sharded`: a (px, sp) mesh of the world, NCCL
+and one card a rank on ``cuda``, gloo on ``cpu``); every rank renders its
+shard and gets the frame, the first writes the files.  Without the
+launcher's environment it is the one-rank mesh.
+
 Usage:
     python -m raytracinginoneweekendincuda_torch.utils.cli \
+        --scene 4 --width 240 --height 135 --spp 10 --out out.ppm
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m raytracinginoneweekendincuda_torch.utils.cli --sharded \
         --scene 4 --width 240 --height 135 --spp 10 --out out.ppm
 """
 
@@ -57,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda: the CUDA kernel (raises without a card); "
                         "cpu: the plain PyTorch version")
+    p.add_argument("--sharded", action="store_true",
+                   help="render over the ranks of torch.distributed.run "
+                        "(parallel/render.render_sharded; not engine mega)")
     return p
 
 
@@ -72,7 +84,13 @@ def main(argv=None) -> int:
     from ..utils.config import RenderConfig, reference_samples_for_scene
     from ..ops.render import render, resolve_device
 
-    dev = resolve_device(args.device)
+    if args.sharded:
+        from ..parallel import distributed
+
+        distributed.initialize(device=args.device)
+        dev = resolve_device(distributed.rank_device(args.device))
+    else:
+        dev = resolve_device(args.device)
     spp = args.spp if args.spp is not None \
         else reference_samples_for_scene(args.scene)
     cfg = RenderConfig(
@@ -92,12 +110,27 @@ def main(argv=None) -> int:
     scene, meta = compile_scene(build_scene(args.scene), cfg.width,
                                 cfg.height, dtype=np.dtype(args.dtype))
     t0 = time.perf_counter()
-    img = render(scene, meta, cfg, device=dev, out_u8=True)
+    if args.sharded:
+        from ..parallel.render import make_mesh, render_sharded
+
+        mesh = make_mesh(device=dev)
+        print(f"sharded: {mesh}", file=sys.stderr)
+        img = render_sharded(scene, meta, cfg, mesh, device=dev, out_u8=True)
+    else:
+        img = render(scene, meta, cfg, device=dev, out_u8=True)
     dt = time.perf_counter() - t0
     rays = cfg.width * cfg.height * spp
     print(f"took {dt:.3f} s  ({rays / dt / 1e6:.2f} M primary rays/s, "
           f"including table packing and the first-use kernel build)",
           file=sys.stderr)
+    if args.sharded:
+        import torch.distributed as dist
+
+        primary = distributed.is_primary()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if not primary:
+            return 0
     write_ppm(args.out, img)
     print(f"wrote {args.out}", file=sys.stderr)
     if args.png:

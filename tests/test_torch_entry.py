@@ -163,10 +163,13 @@ def test_cli_cuda_without_card_raises():
 
 
 def test_cli_rejects_unported_flags():
+    """``--cpu`` (the port's ``--device cpu``) and ``--profile`` (a
+    jax.profiler trace) are not ported; ``--sharded`` is."""
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(["--cpu"])
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["--sharded"])
+        cli.build_parser().parse_args(["--profile", "trace"])
+    assert cli.build_parser().parse_args(["--sharded"]).sharded
 
 
 def test_dispatch_on_cpu_tensors_leaves_launch_counter():

@@ -1,7 +1,7 @@
-"""PyTorch port: what the replay kernels' host side decides without a
-card -- K4's choice of where it sums d_rep (ops/replay_cuda.py) on the
-port's own tables -- the K3 / K4 record of tools/kernel_times, and the K3
-/ K4 variants of tools/replay_split."""
+"""PyTorch port: what the replay kernels' host side computes without a
+card -- the fixed-order sum of K4's per lane-bounce slots into d_rep
+(ops/replay_cuda.rep_sum) -- the K3 / K4 record of tools/kernel_times,
+and the K3 / K4 variants of tools/replay_split."""
 
 import os
 
@@ -10,71 +10,125 @@ import pytest
 import torch
 
 from raytracinginoneweekendincuda_torch.models.scenes import (
-    build_scene, sphere_field,
+    build_scene,
 )
 from raytracinginoneweekendincuda_torch.ops import mega2
 from raytracinginoneweekendincuda_torch.ops import replay as rp
 from raytracinginoneweekendincuda_torch.ops import replay_cuda as rc
+from raytracinginoneweekendincuda_torch.ops.hit import row_sum
 from raytracinginoneweekendincuda_torch.scene.compiler import compile_scene
 from raytracinginoneweekendincuda_torch.tools import kernel_times, replay_split
 from raytracinginoneweekendincuda_torch.utils import cuda_build
 from torch_threads import one_torch_thread  # noqa: F401
 
-H100_OPTIN = 232_448      # an H100's opt-in shared memory a block, bytes
+def _slots(K, n, np_rows, hot, seed):
+    """K4-shaped slots: keys [K, n] (-1 on about a third of them, ``hot``
+    of the others on row 3) and rows [K, n, 27], NaN where the key is -1
+    (K4 leaves those rows unwritten)."""
+    rs = np.random.default_rng(seed)
+    keys = rs.integers(0, np_rows, (K, n))
+    keys[rs.random((K, n)) < hot] = 3
+    keys[rs.random((K, n)) < 0.35] = -1
+    rows = rs.standard_normal((K, n, 27)).astype(np.float32)
+    rows[keys < 0] = np.nan
+    return torch.as_tensor(keys.astype(np.int32)), torch.as_tensor(rows)
 
 
-def _table_rows(desc) -> int:
-    scene, meta = compile_scene(desc, 16, 8, dtype=np.float32)
-    tab = mega2.pack_mega2_tables(scene, meta, "cpu")
-    return rp.replay_table(
-        scene, meta, tab,
-        kernel_space=mega2.mega2_kernel_id_space(tab, meta)).NP
+@pytest.mark.parametrize("K,n,np_rows,hot", [
+    (8, 4096, 512, 0.5), (8, 2000, 37, 0.9), (3, 700, 1, 0.0),
+    (16, 1500, 3522, 0.3)])
+def test_k4_rep_sum_is_row_sum_and_adds_every_slot(K, n, np_rows, hot):
+    """d_rep from K4's slots: bit for bit `hit.row_sum` of the rows with a
+    key (the fixed order), within f32 rounding of ``index_add_`` in f64,
+    the unwritten rows (NaN here) never read."""
+    keys, rows = _slots(K, n, np_rows, hot, seed=K * n)
+    got = rc.rep_sum(keys, rows, np_rows)
+    assert torch.equal(got, rc.rep_sum_plain(keys, rows, np_rows))
+    sel = (keys >= 0).reshape(-1)
+    ids = keys.reshape(-1)[sel].long()
+    vals = rows.reshape(-1, 27)[sel]
+    assert torch.equal(got, row_sum(ids, vals, np_rows))
+    want = torch.zeros((np_rows, 27), dtype=torch.float64).index_add_(
+        0, ids, vals.double())
+    assert torch.isfinite(got).all()
+    scale = float(vals.abs().sum()) / max(np_rows, 1) + 1.0
+    assert float((got.double() - want).abs().max()) <= 1e-5 * scale
 
 
-@pytest.mark.parametrize("world,rows,shared", [
-    ("scene 0", 512, True), ("scene 9", 3522, False),
-    ("sphere_field(3200)", 3264, False)])
-def test_k4_sums_d_rep_in_shared_memory_where_it_fits(world, rows, shared):
-    """At the train step's K 8: scene 0's 512 rows (55 KB of d_rep beside
-    36 KB of states) in shared memory, scene 9's and the large world's
-    (above the opt-in) in global memory."""
-    desc = (sphere_field(3200) if world.startswith("sphere_field")
-            else build_scene(int(world.split()[1])))
-    np_rows = _table_rows(desc)
-    assert np_rows == rows
-    assert rc.bwd_rep_in_shared(np_rows, 8, H100_OPTIN) is shared
+def _emulate_rep_sum_kernel(keys, rows, np_rows):
+    """csrc/rep_sum.cu's two kernels in numpy f32, in their order: a block
+    of 256 threads a chunk (thread t adds entries t, t + 256, ..., then a
+    tree of fixed pairs), then each row's chunk partials in order."""
+    order, starts, chunk_first, max_chunks = (
+        x.numpy() if torch.is_tensor(x) else x
+        for x in rc.rep_sum_chunks(keys, np_rows))
+    flat = rows.reshape(-1, 27).numpy()
+    n_chunks = int(chunk_first[-1])
+    assert n_chunks <= max_chunks
+    partial = np.zeros((max_chunks, 27), np.float32)
+    seen = []
+    for b in range(n_chunks):
+        r = int(np.searchsorted(chunk_first, b, side="right")) - 1
+        first = int(starts[r]) + (b - int(chunk_first[r])) * rc.REP_CHUNK
+        end = min(int(starts[r + 1]), first + rc.REP_CHUNK)
+        idx = order[first:end]
+        seen.append(idx)
+        assert (keys.reshape(-1).numpy()[idx] == r).all()
+        red = np.zeros((256, 27), np.float32)
+        for t in range(256):
+            for e in idx[t::256]:
+                red[t] = red[t] + flat[e]
+        s = 128
+        while s > 0:
+            red[:s] = red[:s] + red[s:2 * s]
+            s //= 2
+        partial[b] = red[0]
+    out = np.zeros((np_rows, 27), np.float32)
+    for r in range(np_rows):
+        for q in range(int(chunk_first[r]), int(chunk_first[r + 1])):
+            out[r] = out[r] + partial[q]
+    return out, np.sort(np.concatenate(seen)) if seen else np.zeros(0)
 
 
-def test_k4_shared_rule_counts_states_and_rows():
-    """The rule is the block's states (K x 9 words a thread) plus d_rep
-    (27 words a row) against the opt-in, to the byte."""
-    K, threads = 8, rc.BWD_BLOCK
-    states = 4 * rc.STATE_WORDS * K * threads
-    for rows in (1, 512, 1000):
-        need = states + 4 * 27 * rows
-        assert rc.bwd_rep_in_shared(rows, K, need)
-        assert not rc.bwd_rep_in_shared(rows, K, need - 1)
-    assert rc.bwd_rep_in_shared(512, 8, 92_160, threads=128)
-    assert not rc.bwd_rep_in_shared(512, 8, 92_160, threads=160)
+@pytest.mark.parametrize("K,n,np_rows,hot", [
+    (8, 4096, 512, 0.5), (3, 700, 1, 0.0), (4, 1500, 3522, 0.3)])
+def test_k4_rep_sum_kernel_chunks_read_every_slot_once(K, n, np_rows, hot):
+    """The host half of the CUDA sum (rep_sum_chunks) and the kernels'
+    order, emulated: every slot with a row is read by exactly one chunk of
+    its own row, and the sums agree with the plain twin within f32
+    reassociation."""
+    keys, rows = _slots(K, n, np_rows, hot, seed=K + n)
+    got, seen = _emulate_rep_sum_kernel(keys, rows, np_rows)
+    assert np.array_equal(seen, np.flatnonzero(keys.reshape(-1).numpy() >= 0))
+    want = rc.rep_sum_plain(keys, rows, np_rows).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_k4_rep_sum_repeats_whatever_the_lane_order():
+    """The slots are fixed by (bounce, lane), so a permutation of the lanes
+    among the queue's rounds cannot change them; and the sum of one set
+    of slots is the same on every call."""
+    keys, rows = _slots(8, 3000, 64, 0.6, seed=5)
+    first = rc.rep_sum(keys, rows, 64)
+    for _ in range(3):
+        assert torch.equal(rc.rep_sum(keys.clone(), rows.clone(), 64), first)
 
 
 def test_kernel_times_replay_record():
-    """K3 / K4's keys; the K4 hash covers d_rays and d_bg but not d_rep,
-    whose atomic sum varies from run to run (its norm is kept)."""
+    """K3 / K4's keys; the K4 hash covers d_rep, d_rays and d_bg: K4's
+    d_rep is summed in an order fixed by the data, so it repeats."""
     rs = np.random.default_rng(3)
     out, d_rep, d_rays, d_bg = (torch.as_tensor(rs.standard_normal(s).astype(
         np.float32)) for s in ((64, 3), (16, 27), (64, 7), (64, 3)))
     rec = kernel_times.replay_record(0.03, out, 0.2, d_rep, d_rays, d_bg)
     assert set(rec) == {"k3_train_shape_ms", "k3_train_shape_sha256",
-                        "k4_train_shape_ms", "k4_train_shape_sha256",
-                        "k4_train_shape_d_rep_norm"}
+                        "k4_train_shape_ms", "k4_train_shape_sha256"}
     assert rec["k3_train_shape_sha256"] == kernel_times.digest(out)
-    assert rec["k4_train_shape_sha256"] == kernel_times.digest(d_rays, d_bg)
-    assert rec["k4_train_shape_d_rep_norm"] == pytest.approx(
-        float(np.linalg.norm(d_rep.double().numpy())), rel=1e-12)
+    assert rec["k4_train_shape_sha256"] == kernel_times.digest(d_rep, d_rays,
+                                                               d_bg)
     moved = kernel_times.replay_record(0.03, out, 0.2, d_rep * 2.0, d_rays,
                                        d_bg)
-    assert moved["k4_train_shape_sha256"] == rec["k4_train_shape_sha256"]
+    assert moved["k4_train_shape_sha256"] != rec["k4_train_shape_sha256"]
     d_bg[5, 1] += 1.0
     moved = kernel_times.replay_record(0.03, out, 0.2, d_rep, d_rays, d_bg)
     assert moved["k4_train_shape_sha256"] != rec["k4_train_shape_sha256"]
@@ -111,7 +165,9 @@ def test_k4_split_variants_apply_to_the_kernel_source():
     same = {n for n, (v, _, _) in vs.items() if v == src}
     assert same == {"change", "change, texture columns by index"}
     assert vs["change, texture columns by index"][1] == "parent"
-    assert "atomicAdd(acc" not in vs["change, no d_rep atomics"][0]
+    assert "atomicAdd(acc" not in src and "atomicAdd(d_rep" not in src
+    assert "g.row[0] == 1.2345e30f" in vs["change, no row stores"][0]
+    assert "constexpr int kBlock = 448;" in vs["change, 448 threads"][0]
 
 
 def test_k3_split_variants_apply_to_the_kernel_source():
