@@ -8,19 +8,22 @@ Builds the port's CUDA kernels from the sources in this checkout -- K1
 sum ``csrc/rep_sum.cu``), K5 (``csrc/mega_bounces.cu``), K6
 (``csrc/closest_geo.cu``) and the probes P1-P3 (``csrc/probe_pair.cu``,
 ``probe_intmul.cu``, ``probe_mosaic.cu``), one nvcc each, all started
-together -- and drives the port's seven paths:
+together -- and drives the port's eight paths:
 the render (the CLI's ``ops/render.render``, engine ``mega2``, at the
 reference's headline config, and on a world large enough for the chunk
 cull), the training step
 (``parallel/train.make_train_step_mega2``), the XLA-family engines
 (``render`` with ``wavefront_pallas`` and ``mega``), the probe tools
-(``tools/probe_*.main``) and the general train step
-(``parallel/train.make_train_step``, plain PyTorch, held against K2-K4)
+(``tools/probe_*.main``), the general train step
+(``parallel/train.make_train_step``, plain PyTorch, held against K2-K4),
 the BVH engines (``render`` with ``bvh`` and ``wavefront_bvh``, plain
-PyTorch, held against the brute-force engines and the f64 oracle) and
+PyTorch, held against the brute-force engines and the f64 oracle),
 the sharded path (``parallel/render.render_sharded`` and the mesh
-steps over ``torch.distributed``), holding every kernel against its
-plain PyTorch version.  Phases:
+steps over ``torch.distributed``) and the on-card validation with the
+reference benchmarks (the card's frames against their pinned hashes and
+the CPU build, the replay against the XLA replay, the north star, the
+reference table), holding every kernel against its plain PyTorch
+version.  Phases:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the kernels' build times and ptxas reports;
@@ -184,7 +187,29 @@ plain PyTorch version.  Phases:
     step at scene 0 64x32@2, K 8, against the one-device steps (loss rel
     1e-6, leaves after one Adam step 3e-6), the ranks' frames and leaves
     equal; (d) the frame and the mega2 step at world 1 and 2, best of 3,
-    host clock + sync, with the collectives' share.
+    host clock + sync, with the collectives' share;
+18. the on-card validation and the reference benchmarks
+    (``tools/validate_gpu.py``, ``validate_replay_gpu.py``,
+    ``bench_northstar.py``, ``utils/benchmark.run_all``): (a) K1's u8
+    frames of scenes 0-9 at ``validate_gpu.HASH_CONFIG`` equal the
+    hashes pinned in ``VALIDATION_TORCH.json`` (a gate: a change of a
+    frame on the card updates that file, with its reason); (b) the same
+    frames from the CPU build (K1's plain version on the host): whether
+    the u8 hashes are equal, and where not, the float frames within the
+    port's CPU-against-JAX bounds (a gate); both through
+    ``validate_gpu.validate``'s section 3 in its strict mode (a scene
+    the record lacks fails); (c) K3 / K4 against the XLA
+    replay on scenes 2, 3, 8 and 9 at 64x48, K 8, with the JAX tool's
+    gates on the close lanes and the gradients, and scene 3's K4
+    directional derivative within rel 0.35 of the f64 XLA replay's
+    central difference (gates); scene 3's f32 FD clause, which misses
+    the JAX tool's gate wherever every lane is close (fault 9), is held
+    to the reading recorded in ``VALIDATION_TORCH.json`` within
+    `FD_PIN_BAND`, so that a change to K3 or K4 shows; (d) the north star, ``book1_final()``
+    at 1200x675@500 through ``render()``, best of 2, rays/s and K1's
+    bound's share of the frame;
+    (e) ``run_all`` over the four reference rows at one repeat, each time
+    beside the RTX 5070 Ti's; (f) the phase's seconds.
 
 Prints the kernel record and the card on lines of their own, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, before that
@@ -239,22 +264,27 @@ from raytracinginoneweekendincuda_torch.ops.render import finalize, render
 from raytracinginoneweekendincuda_torch.parallel import distributed, train
 from raytracinginoneweekendincuda_torch.parallel import render as prender
 from raytracinginoneweekendincuda_torch.tools import (
-    cull_share, probe_intmul, probe_mosaic, probe_pair,
+    bench_northstar, cull_share, probe_intmul, probe_mosaic, probe_pair,
+    validate_gpu, validate_replay_gpu,
 )
-from raytracinginoneweekendincuda_torch.tools.common import best_ms
+from raytracinginoneweekendincuda_torch.tools.common import (
+    PEAK_FP32, best_ms, bound, nbytes,
+)
 from raytracinginoneweekendincuda_torch.tools.kernel_times import (
     first_pool, replay_inputs, step_phase_ms, train_setup,
 )
 from raytracinginoneweekendincuda_torch.tools.lane_share import (
-    lane_shares, path_bounces, trace_shares,
+    OPS_BOUNCE, OPS_BOX, OPS_MEDIUM, OPS_QUAD, OPS_SPHERE, k1_bound,
+    lane_shares, pair_ops, path_bounces, path_counts, table_bytes,
+    trace_shares,
 )
+from raytracinginoneweekendincuda_torch.utils import benchmark
 from raytracinginoneweekendincuda_torch.utils.benchmark import card_line
 
 TOL_ABOVE = 1e-4          # a pixel "differs" when a channel moves more
 MAX_FRAC_ABOVE = 0.01     # at most 1% of pixels may differ
 MAX_MEAN = 2e-3           # mean absolute difference over all channels
 STRIDE = 97               # pixel-id stride of the main-path check subset
-TAPE_CHUNK = 1440 * 72    # pixels a K2 trace when counting a frame's paths
 NO_SPILLS = ("mega2_render", "mega2_trace", "replay_bwd", "mega_bounces",
              "closest_geo")                     # sized to hold no spills
 MAIN = (1440, 720, 10)    # the main path's frame: width, height, spp
@@ -303,20 +333,13 @@ MEGA_SCENES = (0, 1, 4, 6, 7, 8)   # the scenes K5 renders (no Perlin or
 MEGA_FRAME = (64, 32, 4)  # K5's 8192-lane pool: the first refill of a
                           # frame of this size
 
-# The card's peaks for the bounds (H100 SXM at 700 W): FP32 outside the
-# tensor cores, device memory.
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-# FP32 operations (each add, multiply, compare, divide, sqrt one op) per
-# row test, counted from csrc/mega2_bounce.cuh: a sphere row (moving
-# centre, quadratic, discriminant) 26, a loose quad row 16, a box slab row
-# 36, a medium 40, and the rest of a bounce (record, emission, scatter,
-# RNG) 100; a replayed bounce (csrc/replay_bounce.cuh: re-intersection,
-# record, scatter) 160, its adjoint with the two recomputes 570.
-OPS_SPHERE, OPS_QUAD, OPS_BOX, OPS_MEDIUM, OPS_BOUNCE = 26, 16, 36, 40, 100
-# a chunk's slab test (chunk_visible: six subtractions, six multiplies,
-# twelve min / max, a multiply and two compares) 26; the three sanitized
-# reciprocals of a culled bounce are in OPS_BOUNCE's margin
+# The bounds: the card's peaks and K1 / K2's FP32 operations per row test
+# are in tools/common.py and tools/lane_share.py.  A replayed bounce
+# (csrc/replay_bounce.cuh: re-intersection, record, scatter) takes 160
+# FP32 ops, its adjoint with the two recomputes 570; a chunk's slab test
+# (chunk_visible: six subtractions, six multiplies, twelve min / max, a
+# multiply and two compares) 26; the three sanitized reciprocals of a
+# culled bounce are in OPS_BOUNCE's margin
 OPS_SLAB = 26
 OPS_REPLAY, OPS_REPLAY_BWD = 160, 570
 # FP32 ops per pair test of csrc/xla_pair.cuh (K5, K6): a sphere through
@@ -519,40 +542,6 @@ def build_kernels() -> dict:
         return {n: f.result()[1] for n, f in futs.items()}
 
 
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def table_bytes(tab) -> int:
-    return nbytes(tab.sph, tab.quad, tab.attr, tab.med, tab.perm, tab.vec,
-                  tab.texels, tab.img_dims)
-
-
-def pair_ops(tab) -> int:
-    """FP32 ops of one K1 / K2 bounce over this scene's rows."""
-    n_sph = int((tab.sph[:, 9] > 0.5).sum())
-    n_quad = int((tab.quad[:tab.nl_pad, 12] > 0.5).sum())
-    n_box = int((tab.quad[tab.q_pad:, 7] > 0.5).sum()) if tab.b_pad else 0
-    return (n_sph * OPS_SPHERE + n_quad * OPS_QUAD + n_box * OPS_BOX
-            + tab.n_media * OPS_MEDIUM + OPS_BOUNCE)
-
-
-def path_counts(tab, fp, pix: torch.Tensor,
-                chunk: int = TAPE_CHUNK) -> torch.Tensor:
-    """Bounces each (sample, pixel) path of the frame ran [spp, P], from
-    K2's tapes of the same lanes at the same depth, ``chunk`` pixels (all
-    their samples) a trace."""
-    counts = torch.empty((fp.spp, pix.shape[0]), dtype=torch.int32,
-                         device=pix.device)
-    for a in range(0, pix.shape[0], chunk):
-        part = pix[a:a + chunk]
-        lane_pix, lane_samp = mega2.tape_lanes(part, fp.spp)
-        tape = mega2.trace_tapes_cuda(tab, lane_pix, lane_samp, fp)
-        counts[:, a:a + part.shape[0]] = path_bounces(
-            tape, tab.attr, tab.np_rows).reshape(fp.spp, -1)
-    return counts
-
-
 def k1_equal(tab, fp, pix: torch.Tensor, what: str) -> None:
     """K1's radiance sums against the plain version's: array-equal."""
     got = mega2.render_radiance_cuda(tab, pix, fp).cpu().numpy()
@@ -596,13 +585,6 @@ def row_contention(tape: torch.Tensor) -> dict:
             "hot_share": float(counts.max()) / max(int(hits.numel()), 1),
             "uniform_warp_share": float(uniform.sum())
             / max(int(busy.sum()), 1)}
-
-
-def bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    FP32 ops over the FP32 rate."""
-    tb, to = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
-    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def phase_rng(dev) -> None:
@@ -1755,8 +1737,7 @@ def phase_large_world(dev, card: str) -> dict:
                    + tab.n_media * OPS_MEDIUM + OPS_BOUNCE)
     b_on = bound(table_bytes(tab) + nbytes(tab.cull_s, tab.cull_q)
                  + pix.shape[0] * (4 + 12), ops_on)
-    b_off = bound(table_bytes(off) + pix.shape[0] * (4 + 12),
-                  lb * pair_ops(off))
+    b_off = k1_bound(off, pix.shape[0], lb)
     print(f"  cull counts of the plain version on those ids, per "
           f"lane-bounce: {json.dumps(pb)}; the frame's lane-bounces (K2 "
           f"tapes) {lb}; bound culled {b_on[0]:.3f} ms ({b_on[1]}), "
@@ -2615,6 +2596,72 @@ def phase_sharded(dev, card: str) -> None:
     print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+FD_PIN_BAND = 0.05     # scene 3's f32 FD reading against its record
+
+
+def phase_validation(dev, card: str) -> None:
+    t_phase = time.perf_counter()
+    # (a), (b) K1's frames at the hash config: the pinned hashes, and the
+    # CPU build
+    m = validate_gpu.validate(dev, (3,), strict=True)
+    tags = m["card_frame_hash_tags"]
+    print(f"  (a), (b) {validate_gpu.HASH_CONFIG}: "
+          f"{sum(t == 'ok' for t in tags.values())} of {len(tags)} frames "
+          f"as pinned; card = CPU build on "
+          f"{sum(m['card_cpu_hash_equal'].values())} of {len(tags)} scenes; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not m["ok"] or set(tags.values()) != {"ok"}:
+        raise AssertionError(f"K1's frames break the pinned hashes or the "
+                             f"CPU build's bounds: {tags}")
+
+    # (c) K3 / K4 against the XLA replay: the JAX tool's gates on the
+    # close lanes and the gradients, scene 3's f64 FD clause, and its f32
+    # FD reading against the record (fault 9)
+    t0 = time.perf_counter()
+    with open(validate_gpu.RECORD) as f:
+        fd_pin = json.load(f)["replay_vs_xla"]["scene3_fd_directional_rel"]
+    replay_m = validate_replay_gpu.validate(dev)
+    missed = [sid for sid in validate_replay_gpu.GATES
+              if not replay_m[f"scene{sid}_lanes_grad_ok"]]
+    if not replay_m["scene3_fd64_ok"]:
+        missed.append("3 (f64 FD)")
+    fd_rel = replay_m["scene3_fd_directional_rel"]
+    if abs(fd_rel - fd_pin) > FD_PIN_BAND:
+        missed.append(f"3 (f32 FD reading {fd_rel:.4f} against the "
+                      f"recorded {fd_pin:.4f})")
+    print(f"  (c) close lanes and gradients, scene 3's f64 FD rel "
+          f"{replay_m['scene3_fd64_directional_rel']:.4f} (< "
+          f"{validate_replay_gpu.FD_REL_MAX}); scene 3's f32 FD reading "
+          f"{fd_rel:.4f}, recorded {fd_pin:.4f} (within {FD_PIN_BAND}; "
+          f"the JAX tool's gate < {validate_replay_gpu.FD_REL_MAX} "
+          f"{'met' if replay_m['scene3_fd_ok'] else 'missed, fault 9'}): "
+          f"{'every gate met' if not missed else f'MISSED on {missed}'}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if missed:
+        raise AssertionError(f"K3 / K4 miss a gate against the XLA replay "
+                             f"on scenes {missed}")
+
+    # (d) the north star
+    t0 = time.perf_counter()
+    ns = bench_northstar.north_star(dev)
+    print(f"  (d) north star: {ns['value'] / 1e6:.2f} M primary rays/s "
+          f"({ns['seconds']:.4f} s a frame), K1's bound {ns['bound_ms']:.2f} "
+          f"ms = {ns['bound_share']:.4f} of the frame, on {card}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (e) the reference table, one repeat
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        rows = benchmark.run_all("mega2", 1, os.path.join(d, "table.md"),
+                                 dev)
+    for sid, name, spp, sec, ref_s in rows:
+        print(f"  (e) scene {sid} ({name}) 1440x720@{spp}: {sec:.4f} s vs "
+              f"the RTX 5070 Ti's {ref_s} s", flush=True)
+    print(f"  (e) {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  (f) phase 18: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2757,10 +2804,9 @@ def main() -> int:
     # same (pixel, sample) lanes at the same depth
     counts = path_counts(tab, fp, pix)
     main_lb = int(counts.sum())
-    k1_bound = bound(table_bytes(tab) + pix.shape[0] * (4 + 12),
-                     main_lb * pair_ops(tab))
+    main_bound = k1_bound(tab, pix.shape[0], main_lb)
     print(f"  K1 bound at scene 0 {w}x{h}@{spp}: {main_lb} lane-bounces, "
-          f"{k1_bound[0]:.3f} ms ({k1_bound[1]}); lane shares "
+          f"{main_bound[0]:.3f} ms ({main_bound[1]}); lane shares "
           f"{json.dumps(lane_shares(counts))}", flush=True)
     del counts
     w, h, spp = SIDE
@@ -2786,8 +2832,7 @@ def main() -> int:
           f"{plain_s:.4f} s; on {card}", flush=True)
     counts = path_counts(tab, fp, pix)
     k1_lb = int(counts.sum())
-    side_bound = bound(table_bytes(tab) + pix.shape[0] * (4 + 12),
-                       k1_lb * pair_ops(tab))
+    side_bound = k1_bound(tab, pix.shape[0], k1_lb)
     print(f"  K1 bound at scene 0 {w}x{h}@{spp}: {k1_lb} lane-bounces, "
           f"{side_bound[0]:.3f} ms ({side_bound[1]}); lane shares "
           f"{json.dumps(lane_shares(counts))}", flush=True)
@@ -2863,12 +2908,18 @@ def main() -> int:
           f"and the one-device steps", flush=True)
     phase_sharded(dev, card)
 
+    print("[18] the on-card validation and the reference benchmarks: K1's "
+          "frames against their pinned hashes and the CPU build, K3 / K4 "
+          "against the XLA replay on scenes 2, 3, 8 and 9, the north star, "
+          "the reference table", flush=True)
+    phase_validation(dev, card)
+
     if any(m.startswith(("jax", "raytracinginoneweekendincuda_tpu"))
            for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     recs = {"mega2_render": dict(
         launches=launches, max_abs_err=main_st["max_abs"],
-        ms=k1_frame * 1e3, plain_ms=main_plain_s * 1e3, bound=k1_bound,
+        ms=k1_frame * 1e3, plain_ms=main_plain_s * 1e3, bound=main_bound,
         large_world=large),
         **recs}
     replaces = {

@@ -1,5 +1,6 @@
-"""What the probe tools share: the ``--device`` argument, timing, and the
-launch of a probe kernel through its plain C entry point."""
+"""What the tools share: the ``--device`` argument, timing, the card's
+peaks and a kernel's bound, and the launch of a probe kernel through its
+plain C entry point."""
 
 from __future__ import annotations
 
@@ -27,6 +28,23 @@ def describe(dev: torch.device) -> str:
 # one timed launch (~0.5 ms at the H100's clock, ten times the host's
 # enqueue time of a launch)
 SLEEP_CYCLES_A_LAUNCH = 1_000_000
+
+
+# The card's peaks for the bounds (H100 SXM at 700 W): FP32 outside the
+# tensor cores, device memory.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    FP32 ops over the FP32 rate."""
+    tb, to = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def best_ms(fn, dev: torch.device, repeats: int = 5,

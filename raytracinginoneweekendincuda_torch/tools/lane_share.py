@@ -16,6 +16,10 @@ being 32 consecutive pixel ids:
 A lane refilled from a pixel queue idles only in the frame's tail, so its
 share is close to 1 on any frame that fills the card several times.
 
+The same counts give K1's bound for a frame (`k1_bound`): its
+lane-bounces (`path_counts`, from K2's tapes of the frame's lanes) times
+the FP32 operations a lane-bounce does over the scene's rows.
+
 K2's tapes are sample-major (``ops/mega2.tape_lanes``: lane ``s*P + p``),
 so one thread a lane -- K2 without a lane queue -- keeps the ``nested``
 share of its thread slots busy (`trace_shares`).  From the command line,
@@ -41,10 +45,18 @@ from ..ops import mega2
 from ..ops.render import resolve_device
 from ..scene.compiler import compile_scene
 from ..utils.config import RenderConfig
+from .common import bound, nbytes
 
 WARP = 32
 STEP = (0, 640, 360, 8, 8)   # the training step: scene, w, h, spp, K
 _LIGHT = 3.0       # MAT_DIFFUSE_LIGHT, attr column 10
+TAPE_CHUNK = 1440 * 72    # pixels a K2 trace when counting a frame's paths
+# FP32 operations (each add, multiply, compare, divide, sqrt one op) per
+# row test, counted from csrc/mega2_bounce.cuh: a sphere row (moving
+# centre, quadratic, discriminant) 26, a loose quad row 16, a box slab row
+# 36, a medium 40, and the rest of a bounce (record, emission, scatter,
+# RNG) 100.
+OPS_SPHERE, OPS_QUAD, OPS_BOX, OPS_MEDIUM, OPS_BOUNCE = 26, 16, 36, 40, 100
 
 
 def path_bounces(tape: torch.Tensor, attr: torch.Tensor,
@@ -90,6 +102,45 @@ def trace_shares(tape: torch.Tensor, attr: torch.Tensor, np_rows: int,
     ``s*P + p`` is pixel p's sample s)."""
     counts = path_bounces(tape, attr, np_rows).reshape(spp, -1)
     return lane_shares(counts, warp)
+
+
+def table_bytes(tab) -> int:
+    """Bytes of K1's / K2's scene tables."""
+    return nbytes(tab.sph, tab.quad, tab.attr, tab.med, tab.perm, tab.vec,
+                  tab.texels, tab.img_dims)
+
+
+def pair_ops(tab) -> int:
+    """FP32 ops of one K1 / K2 bounce over this scene's rows."""
+    n_sph = int((tab.sph[:, 9] > 0.5).sum())
+    n_quad = int((tab.quad[:tab.nl_pad, 12] > 0.5).sum())
+    n_box = int((tab.quad[tab.q_pad:, 7] > 0.5).sum()) if tab.b_pad else 0
+    return (n_sph * OPS_SPHERE + n_quad * OPS_QUAD + n_box * OPS_BOX
+            + tab.n_media * OPS_MEDIUM + OPS_BOUNCE)
+
+
+def path_counts(tab, fp, pix: torch.Tensor,
+                chunk: int = TAPE_CHUNK) -> torch.Tensor:
+    """Bounces each (sample, pixel) path of the frame ran [spp, P], from
+    K2's tapes (the plain version on the CPU) of the same lanes at the
+    same depth, ``chunk`` pixels (all their samples) a trace."""
+    counts = torch.empty((fp.spp, pix.shape[0]), dtype=torch.int32,
+                         device=pix.device)
+    for a in range(0, pix.shape[0], chunk):
+        part = pix[a:a + chunk]
+        lane_pix, lane_samp = mega2.tape_lanes(part, fp.spp)
+        tape = mega2.trace_tapes(tab, lane_pix, lane_samp, fp)
+        counts[:, a:a + part.shape[0]] = path_bounces(
+            tape, tab.attr, tab.np_rows).reshape(fp.spp, -1)
+    return counts
+
+
+def k1_bound(tab, n_ids: int, lane_bounces: float):
+    """(bound_ms, bound_by) of a K1 launch over ``n_ids`` pixel ids that
+    runs ``lane_bounces`` lane-bounces: the tables and ids read, the sums
+    written, each lane-bounce's tests of every row."""
+    return bound(table_bytes(tab) + n_ids * (4 + 12),
+                 lane_bounces * pair_ops(tab))
 
 
 def main(argv=None) -> dict:

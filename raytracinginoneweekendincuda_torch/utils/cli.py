@@ -2,8 +2,10 @@
 
 Same flags as ``raytracinginoneweekendincuda_tpu.utils.cli`` (defaults
 follow the reference: 1440x720, scene 9, per-scene spp, seed 1984), except
-that ``--device {cuda,cpu}`` replaces ``--cpu``, and ``--profile`` (a
-``jax.profiler`` trace) is not ported.  ``--device cuda`` (the default)
+that ``--device {cuda,cpu}`` replaces ``--cpu``, and ``--profile DIR``
+writes a ``torch.profiler`` Chrome trace of the render (host and, on the
+card, device activity) into DIR, where the JAX CLI writes a
+``jax.profiler`` trace.  ``--device cuda`` (the default)
 renders on the card -- the engines' CUDA kernels (K1 for ``mega2``, K5 for ``mega``,
 K6 for ``wavefront_pallas``) and plain PyTorch around them and for the
 other engines (``wavefront``, ``bruteforce`` and the BVH engines ``bvh``
@@ -27,6 +29,8 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
@@ -69,6 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sharded", action="store_true",
                    help="render over the ranks of torch.distributed.run "
                         "(parallel/render.render_sharded; not engine mega)")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the render "
+                        "into DIR (render.trace.json; a rank's own file "
+                        "under --sharded)")
     return p
 
 
@@ -109,16 +117,33 @@ def main(argv=None) -> int:
 
     scene, meta = compile_scene(build_scene(args.scene), cfg.width,
                                 cfg.height, dtype=np.dtype(args.dtype))
-    t0 = time.perf_counter()
-    if args.sharded:
-        from ..parallel.render import make_mesh, render_sharded
+    prof = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
 
-        mesh = make_mesh(device=dev)
-        print(f"sharded: {mesh}", file=sys.stderr)
-        img = render_sharded(scene, meta, cfg, mesh, device=dev, out_u8=True)
-    else:
-        img = render(scene, meta, cfg, device=dev, out_u8=True)
+        prof = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+    t0 = time.perf_counter()
+    with prof:
+        if args.sharded:
+            from ..parallel.render import make_mesh, render_sharded
+
+            mesh = make_mesh(device=dev)
+            print(f"sharded: {mesh}", file=sys.stderr)
+            img = render_sharded(scene, meta, cfg, mesh, device=dev,
+                                 out_u8=True)
+        else:
+            img = render(scene, meta, cfg, device=dev, out_u8=True)
     dt = time.perf_counter() - t0
+    if args.profile:
+        import torch.distributed as dist
+
+        os.makedirs(args.profile, exist_ok=True)
+        name = (f"render.rank{dist.get_rank()}.trace.json"
+                if dist.is_initialized() else "render.trace.json")
+        path = os.path.join(args.profile, name)
+        prof.export_chrome_trace(path)
+        print(f"profile trace written to {path}", file=sys.stderr)
     rays = cfg.width * cfg.height * spp
     print(f"took {dt:.3f} s  ({rays / dt / 1e6:.2f} M primary rays/s, "
           f"including table packing and the first-use kernel build)",

@@ -5,7 +5,8 @@ autograd, K5 (csrc/mega_bounces.cu), K6 (csrc/closest_geo.cu) and the
 probes P1-P3 (csrc/probe_pair.cu, probe_intmul.cu, probe_mosaic.cu);
 and the plain PyTorch paths that only the card can test: the general
 train step repeating bit for bit, the BVH engines against their
-brute-force twins.  Imports only the port (the card's machine has no
+brute-force twins; and K1's frames against the hashes pinned in
+VALIDATION_TORCH.json.  Imports only the port (the card's machine has no
 JAX).  Marked ``cuda``; skipped where there is no CUDA device (the
 kernels have no CPU build).  Run on a card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda -p no:xdist``."""
@@ -861,3 +862,18 @@ def test_bvh_engines_match_bruteforce_on_card(sid, dev):
     for got, want in (("bvh", "bruteforce"), ("wavefront_bvh", "wavefront")):
         diff = np.abs(img[got] - img[want]).max(-1)
         assert img[got].any() and int((diff > 1e-9).sum()) <= 2, got
+
+
+@pytest.mark.parametrize("sid", range(10))
+def test_k1_frames_equal_pinned_hashes(sid, dev):
+    """K1's u8 frame at tools/validate_gpu.py's hash config equals the hash
+    pinned in VALIDATION_TORCH.json (a change of a frame on the card
+    updates that file, with its reason)."""
+    from raytracinginoneweekendincuda_torch.tools import validate_gpu
+
+    w, h, spp = validate_gpu.HASH_FRAME
+    u8, _ = validate_gpu.mega2_frames(sid, dev, w, h, spp)
+    ok, tags, _ = validate_gpu.pin_hashes(
+        {str(sid): validate_gpu.frame_hash(u8)},
+        validate_gpu.previous_hashes(), strict=True)
+    assert ok and tags == {str(sid): "ok"}, tags

@@ -163,13 +163,27 @@ def test_cli_cuda_without_card_raises():
 
 
 def test_cli_rejects_unported_flags():
-    """``--cpu`` (the port's ``--device cpu``) and ``--profile`` (a
-    jax.profiler trace) are not ported; ``--sharded`` is."""
+    """``--cpu`` (the port's ``--device cpu``) is not ported; ``--sharded``
+    and ``--profile DIR`` (a torch.profiler trace) are."""
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(["--cpu"])
-    with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["--profile", "trace"])
+    assert cli.build_parser().parse_args(["--profile", "trace"]).profile \
+        == "trace"
     assert cli.build_parser().parse_args(["--sharded"]).sharded
+
+
+def test_cli_profile_writes_trace(tmp_path):
+    """``--profile DIR`` writes a torch.profiler Chrome trace of the render
+    into DIR."""
+    import json
+
+    trace = tmp_path / "trace"
+    assert cli.main(["--scene", "4", "--width", "16", "--height", "8",
+                     "--spp", "1", "--device", "cpu", "--profile",
+                     str(trace), "--out", str(tmp_path / "p.ppm")]) == 0
+    doc = json.loads((trace / "render.trace.json").read_text())
+    assert doc["traceEvents"]
+    assert (tmp_path / "p.ppm").read_text().startswith("P3\n16 8\n255")
 
 
 def test_dispatch_on_cpu_tensors_leaves_launch_counter():
