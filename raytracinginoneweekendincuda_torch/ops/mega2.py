@@ -43,6 +43,7 @@ from ..scene.compiler import (
     MAT_METAL, MED_BOX, TEX_CHECKER, TEX_IMAGE, TEX_NOISE, SceneArrays,
     SceneMeta,
 )
+from ..utils import tracing
 from ..utils.config import RenderConfig
 from .raygen import camera_tuple, generate_rays, pixel_counter
 
@@ -299,6 +300,12 @@ def pack_mega2_tables(scene: SceneArrays, meta: SceneMeta, device, *,
     at 1e30), and the JAX package's rule decides which chunks the closest
     hit culls; ``dense_max`` and ``cull_min_chunks`` move its thresholds
     (``dense_max=0, cull_min_chunks=0`` culls every chunk of any world)."""
+    with tracing.span("pack"):
+        return _pack_tables(scene, meta, device, dense_max, cull_min_chunks)
+
+
+def _pack_tables(scene: SceneArrays, meta: SceneMeta, device,
+                 dense_max: int, cull_min_chunks: int) -> Mega2Tables:
     S = scene.sph_c0.shape[0]
     Q = scene.quad_q.shape[0]
 
@@ -454,14 +461,17 @@ def pack_mega2_tables(scene: SceneArrays, meta: SceneMeta, device, *,
     for m_i in range(meta.n_media):
         remap[NP + m_i] = S + Q + m_i
 
-    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
-    i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
+    f32 = lambda x: np.asarray(x, np.float32)
+    i32 = lambda x: np.asarray(x, np.int32)
+    host = dict(sph=f32(sph), quad=f32(quad), attr=f32(attr), med=f32(med),
+                perm=i32(perm), vec=f32(vec), texels=i32(texels),
+                img_dims=i32(img_dims), remap=i32(remap),
+                cull_s=f32(cull_s), cull_q=f32(cull_q))
+    with tracing.span("pack.upload"):
+        tabs = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+    tracing.count("upload_bytes", sum(v.nbytes for v in host.values()))
     return Mega2Tables(
-        sph=f32(sph), quad=f32(quad), attr=f32(attr),
-        med=f32(med),
-        perm=i32(perm), vec=f32(vec), texels=i32(texels),
-        img_dims=i32(img_dims), remap=i32(remap),
-        cull_s=f32(cull_s), cull_q=f32(cull_q),
+        **tabs,
         s_pad=S_pad, nl_pad=nl_pad, q_pad=Q_pad, b_pad=B_pad,
         n_media=meta.n_media, n_noise=max(meta.n_noise, 1),
         cull_pairs=bool(cull_pairs), cull_boxes=bool(cull_boxes))
@@ -1107,9 +1117,10 @@ def render_radiance(tab: Mega2Tables, pix: torch.Tensor,
 def render_mega2(tab: Mega2Tables, fp: FrameParams) -> torch.Tensor:
     """Radiance sums [H*W, 3] of the whole frame, pixel id j*W + i with j
     counting up from the bottom row, on the tables' device."""
-    npix = fp.width * fp.height
-    pix = torch.arange(npix, dtype=torch.int32, device=tab.sph.device)
-    return render_radiance(tab, pix, fp)
+    with tracing.span("k1.enqueue"):
+        npix = fp.width * fp.height
+        pix = torch.arange(npix, dtype=torch.int32, device=tab.sph.device)
+        return render_radiance(tab, pix, fp)
 
 
 # --------------------------------------------------------------------------

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..scene.compiler import SceneArrays, SceneMeta
+from ..utils import tracing
 from ..utils.config import RenderConfig
 
 ENGINES = ("mega2", "mega", "wavefront_pallas", "wavefront", "wavefront_bvh",
@@ -28,12 +29,13 @@ def finalize(fb: torch.Tensor, spp: int, gamma: bool,
     """Average over samples, gamma-2 sqrt (kernel.cu:150-152) and the
     reference's clamp/quantize ``256 * clip(c, 0, 0.999)``
     (kernel.cu:709-718)."""
-    fb = fb / torch.tensor(float(spp), dtype=fb.dtype, device=fb.device)
-    if gamma:
-        fb = torch.sqrt(torch.clamp_min(fb, 0.0).double()).to(fb.dtype)
-    if out_u8:
-        fb = (256.0 * torch.clamp(fb, 0.0, 0.999)).to(torch.uint8)
-    return fb
+    with tracing.span("finalize"):
+        fb = fb / torch.tensor(float(spp), dtype=fb.dtype, device=fb.device)
+        if gamma:
+            fb = torch.sqrt(torch.clamp_min(fb, 0.0).double()).to(fb.dtype)
+        if out_u8:
+            fb = (256.0 * torch.clamp(fb, 0.0, 0.999)).to(torch.uint8)
+        return fb
 
 
 def resolve_device(device) -> torch.device:
@@ -130,30 +132,34 @@ def render(scene: SceneArrays, meta: SceneMeta, cfg: RenderConfig, *,
     ``cfg.differentiable`` selects the integrator's scan form on the
     chunked engines (``bruteforce``, ``bvh``); the other engines have one
     loop each and ignore it, as in the JAX package."""
-    if cfg.engine not in ENGINES:
-        raise NotImplementedError(
-            f"engine {cfg.engine!r} is not ported; the port has "
-            f"{', '.join(ENGINES)} (see ROADMAP.md, queue 1)")
-    dev = resolve_device(device)
-    engine = cfg.engine
-    if engine == "mega2":
-        from .mega2 import frame_params, pack_mega2_tables, render_mega2
+    with tracing.span("render"):
+        if cfg.engine not in ENGINES:
+            raise NotImplementedError(
+                f"engine {cfg.engine!r} is not ported; the port has "
+                f"{', '.join(ENGINES)} (see ROADMAP.md, queue 1)")
+        dev = resolve_device(device)
+        engine = cfg.engine
+        if engine == "mega2":
+            from .mega2 import frame_params, pack_mega2_tables, render_mega2
 
-        tab = pack_mega2_tables(scene, meta, dev)
-        fb = render_mega2(tab, frame_params(scene, cfg))
-    elif engine in ("bruteforce", "bvh"):
-        return _render_chunked(scene, meta, cfg, dev, gamma, out_u8)
-    else:
-        from .mega import mega_supported, render_mega
-        from .wavefront import render_wavefront
-
-        if engine == "mega" and not mega_supported(meta):
-            # Perlin / image textures: the JAX package's fallback
-            engine = "wavefront_pallas"
-        if engine == "mega":
-            fb = render_mega(scene, meta, cfg, device=dev)
+            tab = pack_mega2_tables(scene, meta, dev)
+            with tracing.span("params"):
+                fp = frame_params(scene, cfg)
+            fb = render_mega2(tab, fp)
+        elif engine in ("bruteforce", "bvh"):
+            return _render_chunked(scene, meta, cfg, dev, gamma, out_u8)
         else:
-            fb = render_wavefront(scene, meta, cfg.with_(engine=engine),
-                                  device=dev)
-    img = finalize(fb, cfg.samples_per_pixel, gamma, out_u8)
-    return img.cpu().numpy().reshape(cfg.height, cfg.width, 3)[::-1]
+            from .mega import mega_supported, render_mega
+            from .wavefront import render_wavefront
+
+            if engine == "mega" and not mega_supported(meta):
+                # Perlin / image textures: the JAX package's fallback
+                engine = "wavefront_pallas"
+            if engine == "mega":
+                fb = render_mega(scene, meta, cfg, device=dev)
+            else:
+                fb = render_wavefront(scene, meta, cfg.with_(engine=engine),
+                                      device=dev)
+        img = finalize(fb, cfg.samples_per_pixel, gamma, out_u8)
+        with tracing.span("readback"):
+            return img.cpu().numpy().reshape(cfg.height, cfg.width, 3)[::-1]

@@ -5,7 +5,16 @@ follow the reference: 1440x720, scene 9, per-scene spp, seed 1984), except
 that ``--device {cuda,cpu}`` replaces ``--cpu``, and ``--profile DIR``
 writes a ``torch.profiler`` Chrome trace of the render (host and, on the
 card, device activity) into DIR, where the JAX CLI writes a
-``jax.profiler`` trace.  ``--device cuda`` (the default)
+``jax.profiler`` trace, and then prints the port's counters
+(`utils/tracing.py`: ``upload_bytes``, the bytes of the tables' copies to
+the device).  Beside torch's own events the trace holds the port's host
+spans: ``rt.render`` (the frame), and inside it, on engine ``mega2``,
+``rt.pack`` (the host packer) with ``rt.pack.upload`` (the tables'
+copies), ``rt.params``, ``rt.k1.enqueue`` (K1's pixel ids, queue and
+launch), and on every engine but the chunked ones ``rt.finalize``
+(the epilogue) and ``rt.readback`` (the frame's copy to the host); a
+sharded render records only ``rt.pack``, ``rt.pack.upload`` and
+``rt.finalize``.  ``--device cuda`` (the default)
 renders on the card -- the engines' CUDA kernels (K1 for ``mega2``, K5 for ``mega``,
 K6 for ``wavefront_pallas``) and plain PyTorch around them and for the
 other engines (``wavefront``, ``bruteforce`` and the BVH engines ``bvh``
@@ -89,6 +98,7 @@ def main(argv=None) -> int:
     from ..core.image import write_png, write_ppm
     from ..models.scenes import SCENE_NAMES, build_scene
     from ..scene.compiler import compile_scene
+    from ..utils import tracing
     from ..utils.config import RenderConfig, reference_samples_for_scene
     from ..ops.render import render, resolve_device
 
@@ -123,6 +133,7 @@ def main(argv=None) -> int:
 
         prof = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+        tracing.reset()
     t0 = time.perf_counter()
     with prof:
         if args.sharded:
@@ -144,6 +155,7 @@ def main(argv=None) -> int:
         path = os.path.join(args.profile, name)
         prof.export_chrome_trace(path)
         print(f"profile trace written to {path}", file=sys.stderr)
+        print(f"counters: {tracing.counters()}", file=sys.stderr)
     rays = cfg.width * cfg.height * spp
     print(f"took {dt:.3f} s  ({rays / dt / 1e6:.2f} M primary rays/s, "
           f"including table packing and the first-use kernel build)",
