@@ -4,8 +4,9 @@ through the port's ``ops/render.render`` and reads each u8 frame back.
 Traffic keys: ``spp`` (samples a pixel), ``check`` (``frames``: frames
 compared with the reference, the last one always among them; ``pixels``:
 pixels compared in each, drawn from the seed), ``lane_count``
-(``stride``, ``samples``: the traced run's count of K1's lane-bounces,
-every ``stride``-th pixel id at the first ``samples`` samples).
+(``stride``, ``samples``: the traced run's count of K1's lane-bounces
+and of the reference BVH's tests on them, every ``stride``-th pixel id
+at the first ``samples`` samples).
 Frame i of a run (i >= 1; 0 is the warm-up) renders with its own sample
 stream, seed `frame_seed(seed, i)`.
 """
@@ -19,7 +20,9 @@ import torch
 
 from rtbench import trace, window
 from rtbench.check import Reading
-from rtbench.reference import tracer
+from rtbench.reference import bvh, tracer
+
+WALK_CHUNK = 1 << 21    # rays a BVH walk takes at once
 
 
 def frame_seed(seed: int, i: int) -> int:
@@ -110,22 +113,55 @@ class Driver:
             torch.cuda.empty_cache()
 
     def count(self, ref_world) -> dict:
-        """The traced run's counts: frames, and K1's lane-bounces a frame by
-        the reference's own path counter, scaled to the frame."""
+        """The traced run's counts: frames; K1's lane-bounces a frame by
+        the reference's own path counter, scaled to the frame; and the box
+        and sphere tests a lane-bounce of the reference's BVH walk
+        (`reference/bvh.py`) on every lane-bounce of those paths, with
+        each mean's standard error over the mean."""
         lc = self.cell.traffic["lane_count"]
         n_s = min(lc["samples"], self.spp)
         fr = tracer.Frame(ref_world, self.W, self.H,
                           self.cell.config["max_bounces"], self.dev)
         ids = torch.arange(0, self.W * self.H, lc["stride"], device=self.dev)
-        _, nb = tracer.radiance(fr, ids, [frame_seed(self.seed, 1)], n_s)
+        rays = []
+        _, nb = tracer.radiance(fr, ids, [frame_seed(self.seed, 1)], n_s,
+                                visit=lambda *r: rays.append(r))
         lb = float(nb.sum()) * (self.W * self.H / ids.shape[0]) \
             * (self.spp / n_s)
-        return {"frames": len(self.ends), "lane_bounces_per_frame": lb,
-                "pixels": self.W * self.H,
-                "spheres": len(ref_world.spheres)}
+        t = time.perf_counter()
+        tree = bvh.build(fr.tab)
+        lane, o, d, tm = (torch.cat(x) for x in zip(*rays))
+        # per lane: its lane-bounces, box tests and sphere tests
+        per = torch.zeros((3, ids.shape[0] * n_s), dtype=torch.float64,
+                          device=self.dev)
+        for c in range(0, lane.shape[0], WALK_CHUNK):
+            s = slice(c, c + WALK_CHUNK)
+            boxes, spheres, _ = bvh.walk(tree, fr.tab, o[s], d[s], tm[s],
+                                         fr.t_min)
+            for k, x in enumerate((torch.ones_like(boxes), boxes, spheres)):
+                per[k].index_add_(0, lane[s], x.double())
+        out = {"frames": len(self.ends), "lane_bounces_per_frame": lb,
+               "pixels": self.W * self.H,
+               "spheres": len(ref_world.spheres),
+               "ref_bvh_nodes": tree.sphere.shape[0]}
+        for k, what in ((1, "box"), (2, "sphere")):
+            mean, rel_se = ratio(per[k], per[0])
+            out[f"ref_{what}_tests_per_lane_bounce"] = mean
+            out[f"ref_{what}_tests_rel_se"] = rel_se
+        out["ref_walk_s"] = time.perf_counter() - t
+        return out
 
     def readings(self, ref_world) -> list:
         return self.sample.readings(self.kept, ref_world)
+
+
+def ratio(y: torch.Tensor, n: torch.Tensor) -> tuple:
+    """(sum(y) / sum(n), its standard error over it): the ratio estimator
+    of y per unit of n over sampled lanes, the error by the delta method."""
+    L, sn = y.shape[0], float(n.sum())
+    r = float(y.sum()) / sn
+    se = (float(((y - r * n) ** 2).sum()) * L / max(L - 1, 1)) ** 0.5 / sn
+    return r, se / r if r else 0.0
 
 
 class Sample:

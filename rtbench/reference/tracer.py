@@ -104,23 +104,32 @@ def camera_rays(fr, pix: torch.Tensor, sample, seed):
     return o, d, tm0 + tu * shutter, pix_ctr
 
 
+def sphere_keys(o, d, tm, a, akey, c0, dc, t0, inv_dt, rad2):
+    """Key-space hits (t * |d|^2, or BIG for a miss) of rays on spheres,
+    elementwise over broadcast shapes: ``o``, ``d``, ``c0`` and ``dc`` are
+    three components each; ``akey`` is the key of t_min."""
+    frac = (tm - t0) * inv_dt
+    oc = [o[k] - (c0[k] + frac * dc[k]) for k in range(3)]
+    b = oc[0] * d[0] + oc[1] * d[1] + oc[2] * d[2]
+    cc = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - rad2
+    disc = b * b - a * cc
+    sq = _sqrt(disc)
+    k1 = -b - sq
+    k2 = -b + sq
+    key = torch.where(k1 > akey, k1, k2)
+    return torch.where((disc > 0.0) & (key > akey), key, BIG)
+
+
 def _closest(tab: Tables, o, d, tm, a, akey):
     """Nearest sphere of each ray in key space (t * |d|^2): (key or BIG,
     sphere index or -1); the first sphere wins an exact tie."""
     col = lambda x: x[None, :]
-    frac = (tm[:, None] - col(tab.t0)) * col(tab.inv_dt)
-    oc = [o[:, k:k + 1] - (col(tab.c0[:, k]) + frac * col(tab.dc[:, k]))
-          for k in range(3)]
-    dx, dy, dz = (d[:, k:k + 1] for k in range(3))
-    b = oc[0] * dx + oc[1] * dy + oc[2] * dz
-    cc = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - col(tab.rad2)
-    disc = b * b - a[:, None] * cc
-    sq = _sqrt(disc)
-    k1 = -b - sq
-    k2 = -b + sq
-    ak = akey[:, None]
-    key = torch.where(k1 > ak, k1, k2)
-    key = torch.where((disc > 0.0) & (key > ak), key, BIG)
+    key = sphere_keys([o[:, k:k + 1] for k in range(3)],
+                      [d[:, k:k + 1] for k in range(3)], tm[:, None],
+                      a[:, None], akey[:, None],
+                      [col(tab.c0[:, k]) for k in range(3)],
+                      [col(tab.dc[:, k]) for k in range(3)],
+                      col(tab.t0), col(tab.inv_dt), col(tab.rad2))
     mn, idx = key.min(dim=1)       # the first index of the minimum
     return mn, torch.where(mn < BIG, idx, -1)
 
@@ -238,11 +247,12 @@ def shade(fr, o, d, tm, thr, acc, pix_ctr, samp, bounce: int, a, t, win):
 
 
 def trace_lanes(fr: Frame, pix: torch.Tensor, samp: torch.Tensor, seed,
-                chunk: int = 1 << 18):
+                chunk: int = 1 << 18, visit=None):
     """Paths of the lanes (pixel ``pix`` [L], sample ``samp`` [L]) with
     the sample-stream seed ``seed`` (an int, or int32 words [L]), ``chunk``
     lanes at a time, dead paths dropped after each bounce: (radiance
-    [L, 3], bounces run [L] int64)."""
+    [L, 3], bounces run [L] int64).  ``visit(lanes, o, d, tm)``, if given,
+    sees each bounce's rays before it runs, with their lanes' indices."""
     L, dev = pix.shape[0], pix.device
     K = max(fr.max_bounces, 1)
     out = torch.zeros((L, 3), dtype=fr.dtype, device=dev)
@@ -256,6 +266,8 @@ def trace_lanes(fr: Frame, pix: torch.Tensor, samp: torch.Tensor, seed,
         acc = torch.zeros_like(o)
         live = torch.arange(c0, c1, device=dev)
         for b in range(K):
+            if visit is not None:
+                visit(live, o, d, tm)
             o, d, thr, acc, alive = _bounce(fr, o, d, tm, thr, acc,
                                             pix_ctr, s, b)
             nb[live] += 1
@@ -273,17 +285,19 @@ def trace_lanes(fr: Frame, pix: torch.Tensor, samp: torch.Tensor, seed,
 
 
 def radiance(fr: Frame, pix: torch.Tensor, seeds, spp: int,
-             chunk: int = 1 << 18):
+             chunk: int = 1 << 18, visit=None):
     """(radiance summed over samples 0 .. spp-1 in order [F, P, 3] in the
     frame's dtype, bounces run [F, P]) of pixel ids ``pix`` [P] in each
-    of F frames, frame f with the sample-stream seed ``seeds[f]``."""
+    of F frames, frame f with the sample-stream seed ``seeds[f]``; for
+    ``visit`` see `trace_lanes`."""
     F, P, dev = len(seeds), pix.shape[0], pix.device
     words = torch.tensor([rng.to_word(int(x)) for x in seeds],
                          dtype=torch.int32, device=dev)
     lane_seed = words.repeat_interleave(spp * P)
     lane_samp = torch.arange(spp, device=dev).repeat_interleave(P).repeat(F)
     lane_pix = pix.repeat(F * spp)
-    out, nb = trace_lanes(fr, lane_pix, lane_samp, lane_seed, chunk)
+    out, nb = trace_lanes(fr, lane_pix, lane_samp, lane_seed, chunk,
+                          visit)
     out = out.view(F, spp, P, 3)
     sums = torch.zeros((F, P, 3), dtype=fr.dtype, device=dev)
     for k in range(spp):

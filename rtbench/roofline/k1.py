@@ -1,33 +1,47 @@
-"""K1, the render kernel: its FP32 operations and bytes for one launch.
+"""K1, the render kernel: its FP32 operations and bytes for one launch,
+held to the work of the reference's own algorithm on the reference's own
+paths, whatever K1 itself runs (every sphere row, or a tree).
 
-Every lane-bounce tests every row of the world (no cull below 1,536
-rows): a sphere row (moving centre, quadratic, discriminant) 26 ops, a
-loose quad row 16, a box slab row 36, a medium 40, and the rest of the
-bounce (record, texture, scatter, RNG) 100; each add, multiply, compare,
-divide or square root one op.  Bytes: the sphere table and the winner
-attributes read once (16 + 40 f32 a sphere row), each pixel id read and
-its radiance sum written (4 + 12 bytes).
+The reference CUDA repository walks a BVH (``BvhNode.h:50-158``, built
+and walked by `rtbench/reference/bvh.py`), so a lane-bounce costs the box
+tests and sphere tests that walk makes on the traced paths
+(``ref_box_tests_per_lane_bounce``, ``ref_sphere_tests_per_lane_bounce``,
+counted by `drivers/render_loop.py`):
+
+- a box test, the slab test of ``AABB.h:68-98``, 28 ops: per axis the
+  reciprocal of the direction, two subtracts and two multiplies to the
+  slabs, their min and max, and the interval's max and min (9); then the
+  final compare;
+- a sphere test (moving centre, quadratic, discriminant) 26 ops;
+- the rest of the bounce (record, texture, scatter, RNG) 100.
+
+Each add, multiply, compare, min, max, divide or square root is one op.
+Bytes: the sphere table and the winner attributes read once (16 + 40 f32
+a sphere), each tree node read once (its box and two links, 32 bytes),
+each pixel id read and its radiance sum written (4 + 12 bytes).
 """
 
 from __future__ import annotations
 
 from .peaks import bound_s
 
-OPS_SPHERE, OPS_QUAD, OPS_BOX, OPS_MEDIUM, OPS_BOUNCE = 26, 16, 36, 40, 100
+OPS_NODE, OPS_SPHERE, OPS_BOUNCE = 28, 26, 100
+NODE_BYTES = 32
 
 
-def ops_per_lane_bounce(spheres: int, quads: int = 0, boxes: int = 0,
-                        media: int = 0) -> int:
-    return (spheres * OPS_SPHERE + quads * OPS_QUAD + boxes * OPS_BOX
-            + media * OPS_MEDIUM + OPS_BOUNCE)
+def ops_per_lane_bounce(box_tests: float, sphere_tests: float) -> float:
+    return box_tests * OPS_NODE + sphere_tests * OPS_SPHERE + OPS_BOUNCE
 
 
-def launch_bytes(spheres: int, ids: int) -> int:
-    return spheres * (16 + 40) * 4 + ids * (4 + 12)
+def launch_bytes(spheres: int, nodes: int, ids: int) -> int:
+    return spheres * (16 + 40) * 4 + nodes * NODE_BYTES + ids * (4 + 12)
 
 
-def bound(spheres: int, ids: int, lane_bounces: float) -> tuple:
+def bound(spheres: int, nodes: int, ids: int, lane_bounces: float,
+          box_tests: float, sphere_tests: float) -> tuple:
     """(seconds, bound by) of a K1 launch over ``ids`` pixel ids of a
-    sphere world that runs ``lane_bounces`` lane-bounces."""
-    return bound_s(launch_bytes(spheres, ids),
-                   lane_bounces * ops_per_lane_bounce(spheres))
+    sphere world whose tree has ``nodes`` nodes, running ``lane_bounces``
+    lane-bounces of ``box_tests`` and ``sphere_tests`` each on average."""
+    return bound_s(launch_bytes(spheres, nodes, ids),
+                   lane_bounces * ops_per_lane_bounce(box_tests,
+                                                      sphere_tests))

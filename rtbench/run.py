@@ -121,7 +121,11 @@ def main(argv=None, *, root: str | None = None, device: str = "cuda",
           f"{time.perf_counter() - t_ref:.2f} s", file=sys.stderr)
     res = {}
     if args.trace:
-        win = tracer.result(drv.count(ref_world))
+        t_count = time.perf_counter()
+        counts = drv.count(ref_world)
+        print(f"rtbench: counts in {time.perf_counter() - t_count:.2f} s: "
+              + json.dumps(counts), file=sys.stderr)
+        win = tracer.result(counts)
         for m in cell.per_layer:
             v = spec.metric_reader(cell, m["name"]).read(win)
             if v is not None:

@@ -40,6 +40,7 @@ def test_a_dry_run_loads_no_jax(tiny_root):
 
 def test_the_reference_imports_nothing_of_either_package():
     code = ("import rtbench.reference.tracer, rtbench.reference.world\n"
+            "import rtbench.reference.bvh\n"
             "import rtbench.reference.scenes.book1_final\n"
             "import rtbench.reference.scenes.bouncing_spheres\n"
             "import rtbench.roofline.k1\n")
