@@ -42,11 +42,17 @@ version.  Phases:
    sums array-equal to the plain version's on the whole frame (more ids
    than lanes, so lanes refill), and the plain version's time;
 6. K1's bound at the main path's frame, from its lane-bounces counted
-   from K2's tapes in chunks of 72 rows, and the lane shares of a nested
-   and a flat loop (`tools/lane_share.py`); scene 9 at 360x180@10 through
-   K1 against the plain version on every 97th pixel id, and K1 and the
-   plain version timed at scene 0 360x180@10 with that frame's bound and
-   lane shares;
+   from K2's tapes in chunks of 72 rows, each testing what the sphere
+   tree's walk tests (`tools/tree_walk.walk_tests` on the CPU, every
+   211th pixel at 2 samples; its winners equal to every row's), and the
+   lane shares of a nested and a flat loop (`tools/lane_share.py`); scene
+   9 at 360x180@10 through K1 against the plain version on every 97th
+   pixel id, and K1 (with the tree and testing every row) and the plain
+   version timed at scene 0 360x180@10 with that frame's bound and lane
+   shares; then K1 with the sphere tree against K1 testing every row at
+   360x180@10, array-equal and both timed, on scenes 0-9, book1_final and
+   ``sphere_field`` worlds of 16 to 128 spheres (a tree built for the
+   comparison where the packer's rule builds none): the rule's crossover;
 7. K2 against ``trace_tapes_plain``: all ten scenes at 64x32, spp 2, K 8
    (at most 0.1% of lanes may differ), and scene 0's pixel ids permuted
    with 257 padding lanes (pix < 0, all -1) and mixed samples; K2's
@@ -242,7 +248,7 @@ from raytracinginoneweekendincuda_torch.core import rng
 from raytracinginoneweekendincuda_torch.core.image import write_ppm
 from raytracinginoneweekendincuda_torch.examples import recover_geometry
 from raytracinginoneweekendincuda_torch.models.scenes import (
-    SCENE_NAMES, build_scene, sphere_field,
+    SCENE_NAMES, book1_final, build_scene, sphere_field,
 )
 from raytracinginoneweekendincuda_torch.scene import api
 from raytracinginoneweekendincuda_torch.scene.bvh import build_scene_bvh
@@ -265,7 +271,7 @@ from raytracinginoneweekendincuda_torch.parallel import distributed, train
 from raytracinginoneweekendincuda_torch.parallel import render as prender
 from raytracinginoneweekendincuda_torch.tools import (
     bench_northstar, cull_share, probe_intmul, probe_mosaic, probe_pair,
-    validate_gpu, validate_replay_gpu,
+    tree_walk, validate_gpu, validate_replay_gpu,
 )
 from raytracinginoneweekendincuda_torch.tools.common import (
     PEAK_FP32, best_ms, bound, nbytes,
@@ -295,6 +301,8 @@ FIELD_SMALL = 3200        # sphere_field spheres: 51 chunks, rows in shared
 FIELD_LARGE = 10_000      # and 157 chunks, rows in global memory
 CULL_FORCED = dict(dense_max=0, cull_min_chunks=0)   # cull every chunk
 CULL_OFF = dict(cull_min_chunks=10 ** 9)             # cull no chunk
+TREE_FIELDS = (16, 32, 64, 128)   # sphere_field worlds of phase 6's tree
+TREE_STRIDE = 211         # pixel-id stride of the tree walk's counts
 TRACE = (64, 32, 2, 8)    # every scene, K2 against the plain version
 TRACE_FIELD = (32, 16, 2, 8)   # K2 on sphere_field(FIELD_SMALL / _LARGE)
 REPLAY = (64, 32, 1, 8)   # every scene, K3 / K4 against the plain version
@@ -1653,6 +1661,47 @@ def rounding_hits(tab, off, fp, ids: torch.Tensor) -> list:
     return out
 
 
+def phase_tree(dev, card: str) -> None:
+    """K1 with the sphere tree and testing every row (``tree_n`` 0), array-
+    equal and each timed (best of 3) at SIDE, on scenes 0-9, book1_final
+    and ``sphere_field`` worlds of 16 to 128 spheres: where the packer
+    builds no tree (one sphere chunk), one is built for the comparison
+    (`tools/tree_walk.with_leaf`).  The crossover of K1's rule."""
+    w, h, spp = SIDE
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    worlds = [(f"scene {sid}", sid) for sid in range(10)]
+    worlds += [("book1_final", book1_final())]
+    worlds += [(f"sphere_field({n})", sphere_field(n)) for n in TREE_FIELDS]
+    for name, world in worlds:
+        if isinstance(world, int):
+            scene, meta, cfg, _ = compile_cfg(world, w, h, spp)
+        else:
+            scene, meta = compile_scene(world, w, h, dtype=np.float32)
+            cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                               max_bounces=50)
+        fp = mega2.frame_params(scene, cfg)
+        tab = mega2.pack_mega2_tables(scene, meta, dev)
+        rule = tab.tree_n > 0
+        tree = tab if rule else tree_walk.with_leaf(tab, mega2.TREE_LEAF)
+        rows = tab._replace(tree_n=0)
+        if tree.tree_n == 0:
+            print(f"  {name}: no sphere after the oversized ones, no tree",
+                  flush=True)
+            continue
+        tree_s, got = timed(lambda: mega2.render_radiance_cuda(tree, pix,
+                                                               fp))
+        rows_s, want = timed(lambda: mega2.render_radiance_cuda(rows, pix,
+                                                                fp))
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: K1 with the tree differs from "
+                                 f"K1 testing every row")
+        print(f"  {name}: {int((tab.sph[:, 9] > 0.5).sum())} spheres, tree "
+              f"{'by the rule' if rule else 'built for the comparison'}: "
+              f"{tree_s * 1e3:.3f} ms with it, {rows_s * 1e3:.3f} ms "
+              f"testing every row (x{rows_s / tree_s:.2f}), sums "
+              f"identical, on {card}", flush=True)
+
+
 def phase_large_world(dev, card: str) -> dict:
     """The main path on the large world: ``render()`` on
     ``sphere_field(FIELD_LARGE)`` at the main frame, then K1 with the cull
@@ -1737,11 +1786,16 @@ def phase_large_world(dev, card: str) -> dict:
                    + tab.n_media * OPS_MEDIUM + OPS_BOUNCE)
     b_on = bound(table_bytes(tab) + nbytes(tab.cull_s, tab.cull_q)
                  + pix.shape[0] * (4 + 12), ops_on)
-    b_off = k1_bound(off, pix.shape[0], lb)
+    walk = tree_walk.walk_tests(
+        mega2.pack_mega2_tables(scene, meta, "cpu", **CULL_OFF),
+        fp._replace(spp=1), pix[::3600].cpu())
+    b_off = k1_bound(off, pix.shape[0], lb,
+                     (walk["box_tests"], walk["sphere_tests"]))
     print(f"  cull counts of the plain version on those ids, per "
           f"lane-bounce: {json.dumps(pb)}; the frame's lane-bounces (K2 "
           f"tapes) {lb}; bound culled {b_on[0]:.3f} ms ({b_on[1]}), "
-          f"unculled {b_off[0]:.3f} ms ({b_off[1]})", flush=True)
+          f"unculled {b_off[0]:.3f} ms ({b_off[1]}; the sphere tree's walk "
+          f"on every 3600th id: {json.dumps(walk)})", flush=True)
     return {"ms": on_s * 1e3, "unculled_ms": off_s * 1e3,
             "bound_ms": b_on[0], "unculled_bound_ms": b_off[0],
             "plain_ms_every_97th": plain_s * 1e3, "render_s": sec,
@@ -2801,13 +2855,22 @@ def main() -> int:
           f"at {SIDE[0]}x{SIDE[1]}@{SIDE[2]}; K1 and plain timed on scene 0 "
           f"there", flush=True)
     # K1's bound: the frame's lane-bounces, counted from K2's tapes of the
-    # same (pixel, sample) lanes at the same depth
+    # same (pixel, sample) lanes at the same depth, each testing what the
+    # sphere tree's walk tests (counted on the CPU on a subset)
     counts = path_counts(tab, fp, pix)
     main_lb = int(counts.sum())
-    main_bound = k1_bound(tab, pix.shape[0], main_lb)
+    walk = tree_walk.walk_tests(
+        mega2.pack_mega2_tables(scene, meta, "cpu"), fp._replace(spp=2),
+        torch.arange(0, w * h, TREE_STRIDE, dtype=torch.int32))
+    tests = (walk["box_tests"], walk["sphere_tests"])
+    main_bound = k1_bound(tab, pix.shape[0], main_lb, tests)
     print(f"  K1 bound at scene 0 {w}x{h}@{spp}: {main_lb} lane-bounces, "
-          f"{main_bound[0]:.3f} ms ({main_bound[1]}); lane shares "
+          f"{main_bound[0]:.3f} ms ({main_bound[1]}); the tree's walk a "
+          f"lane-bounce (every {TREE_STRIDE}th pixel, 2 samples): "
+          f"{json.dumps(walk)}; lane shares "
           f"{json.dumps(lane_shares(counts))}", flush=True)
+    if walk["winners_differing"]:
+        raise AssertionError("the walk's winners differ from every row's")
     del counts
     w, h, spp = SIDE
     pix = torch.arange(w * h, dtype=torch.int32, device=dev)
@@ -2828,15 +2891,20 @@ def main() -> int:
     plain_s, _ = timed(lambda: mega2.render_radiance_plain(tab, pix, fp),
                        repeats=1)
     k1_s2, _ = timed(lambda: mega2.render_radiance_cuda(tab, pix, fp))
-    print(f"  scene 0 K1: {k1_s:.4f} s, then {k1_s2:.4f} s; plain "
-          f"{plain_s:.4f} s; on {card}", flush=True)
+    rows_s, _ = timed(lambda: mega2.render_radiance_cuda(
+        tab._replace(tree_n=0), pix, fp))
+    print(f"  scene 0 K1: {k1_s:.4f} s, then {k1_s2:.4f} s; testing every "
+          f"row (no tree) {rows_s:.4f} s; plain {plain_s:.4f} s; on {card}",
+          flush=True)
     counts = path_counts(tab, fp, pix)
     k1_lb = int(counts.sum())
-    side_bound = k1_bound(tab, pix.shape[0], k1_lb)
+    side_bound = k1_bound(tab, pix.shape[0], k1_lb, tests)
     print(f"  K1 bound at scene 0 {w}x{h}@{spp}: {k1_lb} lane-bounces, "
           f"{side_bound[0]:.3f} ms ({side_bound[1]}); lane shares "
           f"{json.dumps(lane_shares(counts))}", flush=True)
-    k1_pair = (min(k1_s, k1_s2) * 1e3, k1_lb, int((tab.sph[:, 9] > 0.5).sum()))
+    # P1's yardstick: K1 testing every sphere row
+    k1_pair = (rows_s * 1e3, k1_lb, int((tab.sph[:, 9] > 0.5).sum()))
+    phase_tree(dev, card)
 
     w, h, spp, K = TRACE
     print(f"[7] K2 vs plain, all scenes at {w}x{h}, spp {spp}, K {K}; the "

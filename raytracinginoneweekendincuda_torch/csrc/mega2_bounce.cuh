@@ -25,6 +25,24 @@
 // the rows: every lane of a warp reads the same box, one L1 broadcast a
 // chunk against the 64 rows it may save.
 //
+// The sphere tree (kTree; K1's unculled instantiations of worlds with
+// several sphere chunks, chosen in mega2_render.cu): the packer's
+// `sphere_tree` over the sphere rows but the oversized prefix (the
+// ground), a complete binary tree in heap order (node i's children 2i and
+// 2i + 1), a row a leaf.  Each lane tests the prefix rows, then walks the
+// tree alone (`sphere_walk`), depth first: at an internal node it tests
+// both children's boxes and goes down to the nearer one the ray may meet
+// within (t_min, best], best in key space, keeping the other for later;
+// at a leaf it tests the leaf's rows.  No stack: a node's index is its
+// path from the root, so one bit a level (`trail`) says which siblings are
+// still to visit, and going back is a shift.  So a lane tests only the
+// rows whose boxes its ray may hit no farther than the running best.  Rows
+// come out of order, so an equal key goes to the lower row explicitly:
+// the winner is brute force's wherever the f32 hit lies in its row's box
+// (a rounding hit outside it can be skipped, as in the cull).  K2
+// (mega2_trace.cu) and the culled instantiations keep the loops over every
+// row: bounce's kTree defaults to false.
+//
 // Arithmetic follows the plain PyTorch version (ops/mega2.py) op for op, in
 // the same association order, and is compiled with --fmad=false: PyTorch's
 // elementwise ops never contract a*b+c, so neither may this.  f32 constants
@@ -43,6 +61,7 @@ constexpr int ATTR_COLS = 40;
 constexpr int MED_COLS = 22;
 constexpr int CULL_C = 64;        // rows of a chunk
 constexpr int CULL_COLS = 8;      // chunk boxes: 0:3 lo, 3:6 hi
+constexpr int TREE_COLS = 8;      // sphere tree nodes (Params.tree)
 
 constexpr uint32_t CAMERA_STREAM = 0x0CA30000u;
 constexpr uint32_t SCATTER_STREAM = 0x5CA70000u;
@@ -98,6 +117,11 @@ struct Params {
   int cull_boxes;         // quad chunks / box-slab chunks
   int samp0;              // K1: global id of local sample 0 (raygen and
                           // every draw key on s + samp0)
+  const float* tree;      // [2 * max(tree_n, 1), 8] sphere tree nodes, heap
+                          // order from 1: 0:3 lo, 3:6 hi; a leaf's 6 first
+                          // row, 7 rows
+  int tree_p0;            // sphere rows tested before the walk
+  int tree_n;             // the tree's leaves (nodes >= tree_n); 0: none
 };
 
 struct Ray {
@@ -106,16 +130,18 @@ struct Ray {
 
 // The rows the pair loops read once a pair: spheres [s_pad, 16], loose
 // quads [nl_pad, 16] and box slabs [b_pad, 16], each row 64 bytes (four
-// float4).  They point into Params' tables (global memory) or into a
-// block's shared-memory copy of them.
+// float4), and the sphere tree's nodes (32 bytes each).  They point into
+// Params' tables (global memory) or into a block's shared-memory copy of
+// them.
 struct PairRows {
   const float* sph;
   const float* lquad;
   const float* box;
+  const float* tree;
 };
 
 __device__ __forceinline__ PairRows global_rows(const Params& p) {
-  return {p.sph, p.quad, p.quad + p.q_pad * QUAD_COLS};
+  return {p.sph, p.quad, p.quad + p.q_pad * QUAD_COLS, p.tree};
 }
 
 // Columns 4*part .. 4*part+3 of row k: one float4 load from shared
@@ -312,8 +338,9 @@ __device__ __forceinline__ bool chunk_visible(const float* box, const Ray& r,
 // (strict <, so the lowest row keeps a tie), makes it the winner.
 
 // Sphere row k, in key space (key = t * a; a > 0 is per ray, so key order
-// is t order).
-template <bool kSmemRows>
+// is t order).  kTied: rows come in any order, so an equal key wins too
+// when its row is lower (the tree's walk).
+template <bool kSmemRows, bool kTied = false>
 __device__ __forceinline__ void sphere_row(const float* sph, int k,
                                            const Ray& r, float a, float akey,
                                            float& best, int& win) {
@@ -333,7 +360,7 @@ __device__ __forceinline__ void sphere_row(const float* sph, int k,
   float sq = sqrtf(disc);
   float k1 = -b - sq;
   float key = (k1 > akey) ? k1 : (-b + sq);
-  if (key > akey && key < best) {
+  if (key > akey && (key < best || (kTied && key == best && k < win))) {
     win = k;
     best = key;
   }
@@ -406,6 +433,88 @@ __device__ __forceinline__ void box_row(const float* box, int g,
   best = tb;
 }
 
+// ---- the sphere tree's walk ----------------------------------------------
+
+// Half `part` of tree node i: (lo.x, lo.y, lo.z, hi.x), (hi.y, hi.z, c6, c7).
+template <bool kSmemRows>
+__device__ __forceinline__ float4 tree_node(const float* tree, int i,
+                                            int part) {
+  const float4* q = reinterpret_cast<const float4*>(tree) + 2 * i + part;
+  return kSmemRows ? *q : __ldg(q);
+}
+
+// Where the ray (reciprocal direction inv, sanitized, so no NaN) enters
+// node i's box, in key space (near * a), or +inf if it cannot meet the box
+// within (t_min, inf); the boxes are finite, so the plain min / max are the
+// NaN-propagating ones.
+template <bool kSmemRows>
+__device__ __forceinline__ float node_entry(const float* tree, int i,
+                                            const Ray& r, const float inv[3],
+                                            float t_min, float a) {
+  const float4 n0 = tree_node<kSmemRows>(tree, i, 0);
+  const float4 n1 = tree_node<kSmemRows>(tree, i, 1);
+  const float tax = (n0.x - r.ox) * inv[0];
+  const float tbx = (n0.w - r.ox) * inv[0];
+  const float tay = (n0.y - r.oy) * inv[1];
+  const float tby = (n1.x - r.oy) * inv[1];
+  const float taz = (n0.z - r.oz) * inv[2];
+  const float tbz = (n1.y - r.oz) * inv[2];
+  const float near = fmaxf(fmaxf(fminf(tax, tbx), fminf(tay, tby)),
+                           fminf(taz, tbz));
+  const float far = fminf(fminf(fmaxf(tax, tbx), fmaxf(tay, tby)),
+                          fmaxf(taz, tbz));
+  return far >= fmaxf(near, t_min) ? near * a : __int_as_float(0x7f800000);
+}
+
+// The closest sphere by the tree: the rows before p.tree_p0 in row order,
+// then the walk (the notes at the top).  Same (best, win) as the loop over
+// every row wherever the f32 hit lies in its row's box.
+template <bool kSmemRows>
+__device__ __forceinline__ void sphere_walk(const Params& p,
+                                            const PairRows& rows,
+                                            const Ray& r, float a,
+                                            float akey, float& best,
+                                            int& win) {
+  for (int k = 0; k < p.tree_p0; ++k)
+    sphere_row<kSmemRows>(rows.sph, k, r, a, akey, best, win);
+  const float inv[3] = {recip_sanitized(r.dx), recip_sanitized(r.dy),
+                        recip_sanitized(r.dz)};
+  const int n = p.tree_n;
+  if (!(node_entry<kSmemRows>(rows.tree, 1, r, inv, p.t_min, a) <= best))
+    return;
+  int node = 1;
+  unsigned trail = 0u;      // bit j: the sibling of the node j levels up
+  while (true) {            // (bit 0: of this node) is still to visit
+    if (node < n) {         // internal: its children's boxes, nearer first
+      const int c = 2 * node;
+      const float ea = node_entry<kSmemRows>(rows.tree, c, r, inv, p.t_min,
+                                             a);
+      const float eb = node_entry<kSmemRows>(rows.tree, c + 1, r, inv,
+                                             p.t_min, a);
+      const bool ha = ea <= best, hb = eb <= best;
+      if (ha && hb) {
+        node = eb < ea ? c + 1 : c;
+        trail = (trail << 1) | 1u;
+        continue;
+      }
+      if (ha || hb) {
+        node = ha ? c : c + 1;
+        trail <<= 1;
+        continue;
+      }
+    } else {                // leaf: rows c6 .. c6 + c7
+      const float4 n1 = tree_node<kSmemRows>(rows.tree, node, 1);
+      const int end = (int)n1.z + (int)n1.w;
+      for (int k = (int)n1.z; k < end; ++k)
+        sphere_row<kSmemRows, true>(rows.sph, k, r, a, akey, best, win);
+    }
+    if (trail == 0u) return;               // back up to the nearest sibling
+    const int up = __ffs(trail) - 1;       // still to visit
+    node = (node >> up) ^ 1;
+    trail = (trail >> up) ^ 1u;
+  }
+}
+
 // ---- one bounce ------------------------------------------------------------
 
 // Advances the path by one bounce: finds the closest hit, adds background
@@ -420,8 +529,10 @@ __device__ __forceinline__ void box_row(const float* box, int g,
 // loose-quad chunks, p.cull_boxes: box-slab chunks) whose box the ray's
 // slab test rejects.  Both loops run the same row functions in the same
 // row order, so the rows a culled bounce tests give the winner an
-// unculled bounce finds among them.
-template <bool kTextures = true, bool kSmemRows = false, bool kCull = false>
+// unculled bounce finds among them.  With kTree (and not kCull) the
+// closest sphere comes from `sphere_walk` over `rows.tree`.
+template <bool kTextures = true, bool kSmemRows = false, bool kCull = false,
+          bool kTree = false>
 __device__ __forceinline__ bool bounce(const Params& p, const PairRows& rows,
                                        uint32_t pix_ctr, uint32_t samp,
                                        uint32_t bnc, Ray& r, float thr[3],
@@ -446,6 +557,8 @@ __device__ __forceinline__ bool bounce(const Params& p, const PairRows& rows,
                                          t_min, best, a))
         for (int k = c * CULL_C; k < (c + 1) * CULL_C; ++k)
           sphere_row<kSmemRows>(rows.sph, k, r, a, akey, best, win);
+  } else if (kTree) {
+    sphere_walk<kSmemRows>(p, rows, r, a, akey, best, win);
   } else {
     for (int k = 0; k < p.s_pad; ++k)
       sphere_row<kSmemRows>(rows.sph, k, r, a, akey, best, win);

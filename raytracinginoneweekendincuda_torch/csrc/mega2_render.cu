@@ -3,18 +3,30 @@
 // Replaces the persistent Pallas render kernel
 // raytracinginoneweekendincuda_tpu/ops/mega2.py::_make_kernel(mode="render").
 //
-// What bounds it: in every world too small for the chunk cull (all the
-// reference scenes), every lane-bounce tests every sphere, loose quad and
-// box slab row (mega2_bounce.cuh), so a lane-bounce costs about the same on
-// every lane, and the frame's time is its lane-bounces times the rows over
-// the rate at which lanes do useful work.  With the design below lanes
-// stay busy until the frame's tail, and what bounds it is the pair loop's
-// instruction issue: on scene 0 at 1440x720@10 it runs sphere pairs at
-// about 80% of the rate of a bare quadratic over the whole card, several
-// times its FP32 bound (the issue slots go to loads, compares and
-// selects).  Before it, lanes idled while their warp finished a longer
-// path (paths end after 1 to max_bounces bounces): a sample loop around a
-// bounce loop kept about 40% of the lane slots busy there.
+// What bounds it: a lane-bounce's closest hit.  Before the sphere tree,
+// every lane-bounce of an unculled world (all the reference scenes) tested
+// every sphere, loose quad and box slab row, and the pair loop's
+// instruction issue bound the frame: on scene 0 at 1440x720@10 it ran
+// sphere rows at about 80% of the rate of a bare quadratic over the whole
+// card (the issue slots go to loads, compares and selects), 512 rows a
+// lane-bounce where the reference's BVH walk makes ~38 box and ~2 sphere
+// tests.  No gain was left in a cheaper row; the gain was in testing
+// fewer rows.  Now a world with several sphere chunks walks a tree of its
+// spheres (mega2_bounce.cuh, `sphere_walk`): ~34 box and ~2 sphere tests
+// a lane-bounce on the benchmark's worlds (tools/tree_walk.py), a warp
+// paying about its worst lane, ~55.  What bounds K1 there is the walk's
+// issue: a node visit is two slab tests (~60 instructions with the loads
+// and the branch), and the lanes of a warp, each at its own node and
+// bounce, diverge (PERF.md: 5.2x on scene 0, 5.7x on book1_final).  The
+// tree's leaves are single rows: leaves of 2 and 4 rows, or testing a leaf
+// child's rows at its parent, or the child ordered by a split axis with a
+// climb loop, all ran slower on the card.  The crossover: the tree was
+// faster on every world of 16 or more small spheres timed; the rule takes
+// it from two 64-row sphere chunks (65 rows), as no reference scene lies
+// between (scenes 1-8 hold at most 3 spheres).  Before the flat loop,
+// lanes idled while their warp finished a longer path (paths end after 1
+// to max_bounces bounces): a sample loop around a bounce loop kept about
+// 40% of the lane slots busy there.
 //
 // What the design does about it:
 // - One flat loop a lane.  A lane holds one path (pixel, sample, bounce,
@@ -46,9 +58,13 @@
 // - The chunk cull of large worlds (the JAX kernel's, mega2_bounce.cuh):
 //   a world whose tables say so (the packer's cull flags) runs the
 //   instantiation whose closest hit walks 64-row chunks and skips, lane
-//   by lane, the chunks its ray cannot meet.  The others run the loops
-//   over every row, as before: four instantiations, rows in shared or
-//   global memory times culled or not, chosen in the launch.
+//   by lane, the chunks its ray cannot meet.
+// - The sphere tree of an unculled world with several sphere chunks (the
+//   packer's tree_n > 0): the instantiation whose closest sphere walks
+//   the tree, its nodes beside the rows (in shared memory when both fit).
+//   The others run the loops over every row: six instantiations, rows in
+//   shared or global memory times culled, tree or neither, chosen in the
+//   launch.
 // - A sample window, as the JAX kernel's SMEM scalar samp0: the launch
 //   renders local samples [0, spp), and raygen and every draw key on the
 //   global sample s + Params.samp0 (the sample axis of a sharded render,
@@ -65,13 +81,14 @@
 namespace {
 
 // 384 threads a block (at most), two blocks a SM: registers capped at 85
-// a thread (ptxas takes 80, no spills), 24 warps a SM, and two copies of
-// scene 9's 96 KB of pair rows fit a SM's shared memory.
+// a thread (ptxas takes 79-80, no spills), 24 warps a SM; two copies of
+// scene 0's rows and tree nodes (62 KB) fit a SM's shared memory, one of
+// scene 9's (159 KB: 96 KB of rows, 64 KB of nodes).
 constexpr int kBlock = 384;
 constexpr int kMinBlocks = 2;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <bool kSmemRows, bool kCull>
+template <bool kSmemRows, bool kCull, bool kTree>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 mega2_render_kernel(const mega2::Params p, const int* __restrict__ pix,
                     int n, float* __restrict__ out,
@@ -82,16 +99,21 @@ mega2_render_kernel(const mega2::Params p, const int* __restrict__ pix,
     const float4* sph = reinterpret_cast<const float4*>(p.sph);
     const float4* lquad = reinterpret_cast<const float4*>(p.quad);
     const float4* box = reinterpret_cast<const float4*>(rows.box);
+    const float4* tree = reinterpret_cast<const float4*>(p.tree);
     const int n_s = 4 * p.s_pad, n_l = 4 * p.nl_pad, n_b = 4 * p.b_pad;
-    for (int i = threadIdx.x; i < n_s + n_l + n_b; i += blockDim.x) {
+    const int n_r = n_s + n_l + n_b;
+    const int n_t = kTree ? 4 * p.tree_n : 0;   // 2n nodes, 2 float4 each
+    for (int i = threadIdx.x; i < n_r + n_t; i += blockDim.x) {
       smem_rows[i] = i < n_s ? __ldg(sph + i)
                    : i < n_s + n_l ? __ldg(lquad + (i - n_s))
-                                   : __ldg(box + (i - n_s - n_l));
+                   : i < n_r ? __ldg(box + (i - n_s - n_l))
+                             : __ldg(tree + (i - n_r));
     }
     __syncthreads();
     const float* base = reinterpret_cast<const float*>(smem_rows);
     rows = {base, base + mega2::SPH_COLS * p.s_pad,
-            base + mega2::SPH_COLS * (p.s_pad + p.nl_pad)};
+            base + mega2::SPH_COLS * (p.s_pad + p.nl_pad),
+            base + 4 * n_r};
   }
 
   const int lane = threadIdx.x & 31;
@@ -154,7 +176,7 @@ mega2_render_kernel(const mega2::Params p, const int* __restrict__ pix,
       fresh = false;
     }
     int win;
-    const bool alive = mega2::bounce<true, kSmemRows, kCull>(
+    const bool alive = mega2::bounce<true, kSmemRows, kCull, kTree>(
         p, rows, pix_ctr, (uint32_t)(s + p.samp0), (uint32_t)b, r, thr, acc,
         win);
     if (alive && b + 1 < p.max_bounces) {
@@ -174,29 +196,35 @@ mega2_render_kernel(const mega2::Params p, const int* __restrict__ pix,
   }
 }
 
-template <bool kSmemRows, bool kCull>
+template <bool kSmemRows, bool kCull, bool kTree>
 cudaError_t launch(const mega2::Params& p, const int* pix, int n,
                    float* out, unsigned* queue, int smem_bytes, int shape[3],
                    cudaStream_t stream) {
   const cudaError_t err = persistent::launch_shape(
-      mega2_render_kernel<kSmemRows, kCull>, n,
+      mega2_render_kernel<kSmemRows, kCull, kTree>, n,
       persistent::queue_threads(n, kBlock), smem_bytes, shape);
   if (err != cudaSuccess) return err;
-  mega2_render_kernel<kSmemRows, kCull>
+  mega2_render_kernel<kSmemRows, kCull, kTree>
       <<<shape[0], shape[1], smem_bytes, stream>>>(p, pix, n, out, queue);
   return cudaGetLastError();
 }
 
-template <bool kCull>
+// The rows (and the tree's nodes) in shared memory when they fit a block's
+// opt-in, else in global memory.
+template <bool kCull, bool kTree>
 cudaError_t launch_rows(const mega2::Params& p, const int* pix, int n,
                         float* out, unsigned* queue, int smem_optin,
                         int shape[3], cudaStream_t stream) {
   const long rows = (long)p.s_pad + p.nl_pad + p.b_pad;
-  const long bytes = rows * mega2::SPH_COLS * (long)sizeof(float);
+  const long bytes = rows * mega2::SPH_COLS * (long)sizeof(float)
+                     + (kTree ? 2L * p.tree_n * mega2::TREE_COLS
+                                    * (long)sizeof(float)
+                              : 0L);
   if (bytes > 0 && bytes <= smem_optin)
-    return launch<true, kCull>(p, pix, n, out, queue, (int)bytes, shape,
-                               stream);
-  return launch<false, kCull>(p, pix, n, out, queue, 0, shape, stream);
+    return launch<true, kCull, kTree>(p, pix, n, out, queue, (int)bytes,
+                                      shape, stream);
+  return launch<false, kCull, kTree>(p, pix, n, out, queue, 0, shape,
+                                     stream);
 }
 
 }  // namespace
@@ -208,7 +236,9 @@ cudaError_t launch_rows(const mega2::Params& p, const int* pix, int n,
 // from global memory; the culled instantiation runs when the tables cull
 // pair or box chunks.  The grid is persistent (persistent_grid.cuh): at
 // most the blocks the card holds at once, never more threads than ids
-// (rounded up to a warp).  `shape` receives (blocks, threads a block,
+// (rounded up to a warp).  An unculled world with a sphere tree
+// (p.tree_n > 0) runs the instantiation that walks it, with its nodes
+// where the rows are.  `shape` receives (blocks, threads a block,
 // shared bytes: 0 for rows in global memory).  Returns a CUDA error code:
 // the launch's cudaGetLastError(), or the error of a device query.
 extern "C" int mega2_render_launch(const mega2::Params* params,
@@ -221,13 +251,17 @@ extern "C" int mega2_render_launch(const mega2::Params* params,
   if (err != cudaSuccess) return (int)err;
   const mega2::Params& p = *params;
   if (p.cull_pairs || p.cull_boxes)
-    err = launch_rows<true>(p, (const int*)pix, n, (float*)out,
-                            (unsigned*)queue, optin, shape,
-                            (cudaStream_t)stream);
+    err = launch_rows<true, false>(p, (const int*)pix, n, (float*)out,
+                                   (unsigned*)queue, optin, shape,
+                                   (cudaStream_t)stream);
+  else if (p.tree_n > 0)
+    err = launch_rows<false, true>(p, (const int*)pix, n, (float*)out,
+                                   (unsigned*)queue, optin, shape,
+                                   (cudaStream_t)stream);
   else
-    err = launch_rows<false>(p, (const int*)pix, n, (float*)out,
-                             (unsigned*)queue, optin, shape,
-                             (cudaStream_t)stream);
+    err = launch_rows<false, false>(p, (const int*)pix, n, (float*)out,
+                                    (unsigned*)queue, optin, shape,
+                                    (cudaStream_t)stream);
   return (int)err;
 }
 

@@ -12,19 +12,25 @@ launch).  Each block copies the pair rows (spheres, loose quads, box
 slabs) into shared memory when they fit a block's opt-in shared memory;
 a larger world's rows are read from global memory (the launch decides).
 
-What bounds it on an H100: a lane-bounce tests every sphere, loose quad
-and box row (in a world large enough for the JAX package's chunk cull,
-every row of the 64-row chunks whose box its ray may meet), so the time
-is lane-bounces x rows over the rate of lanes that do useful work; the
-flat loop and the queue keep lanes busy until the frame's tail (no lane
-waits for its warp's longest path), and rows in shared memory cost the
-pair loops less than L1 broadcasts do.  Which lane renders which pixel
+What bounds it on an H100: a lane-bounce's closest hit.  In a world of
+several sphere chunks the lane walks a tree of the spheres
+(`sphere_tree`; ~34 node boxes and ~2 spheres a lane-bounce on the
+benchmark's worlds, `tools/tree_walk.py`), in a world large enough for
+the JAX package's chunk cull it tests every row of the 64-row chunks whose
+box its ray may meet, and otherwise every sphere row; loose quad and box
+rows are tested every one.  So the time is lane-bounces x tests over the
+rate of lanes that do useful work; the flat loop and the queue keep lanes
+busy until the frame's tail (no lane waits for its warp's longest path),
+and rows and tree nodes in shared memory cost the loops less than L1
+broadcasts do.  Which lane renders which pixel
 varies from run to run, a pixel's sum does not: the RNG is keyed on
 (pixel, sample, bounce).
 
 ``render_radiance_plain`` is the same function in plain PyTorch: batched
 over rays, looping over samples and bounces with masks, in the same op
-order.  ``render_radiance`` dispatches by device: a CPU tensor takes the
+order; it tests every sphere row, which finds the tree's winner wherever
+the f32 hit lies in its sphere's box (``tools/tree_walk.py`` emulates the
+walk).  ``render_radiance`` dispatches by device: a CPU tensor takes the
 plain version, a CUDA tensor launches K1, anything else raises.
 """
 
@@ -66,6 +72,12 @@ ATTR_COLS = 40     # 0:3 c0|n_unit, 3:6 dc, 6 t0, 7 inv_dt, 8 rad, 9 is_quad,
                    # 17:20 tc1, 20 inv_scale, 21 uv_cos, 22 uv_sin,
                    # 23 noise scale, 24 img_id, 25 noise table id,
                    # 32:35 vxw, 35 q.vxw, 36:39 wxu, 39 q.wxu (quad UVs)
+TREE_COLS = 8      # sphere tree nodes: 0:3 lo, 3:6 hi; a leaf's 6 first
+                   # row, 7 rows
+TREE_LEAF = 1      # sphere rows a leaf of the tree (PERF.md: 1, 2 and 4
+                   # timed on the card)
+TREE_MIN_CHUNKS = 2    # K1 walks the tree in an unculled world of at least
+                       # this many 64-row chunks of active spheres
 MED_COLS = 22      # 0 kind, 1:4 center, 4 radius, 5:8 bmin, 8:11 bmax,
                    # 11 cos, 12 sin, 13 -1/density, 14 radius^2 (squared
                    # in f64, as the JAX kernel squares its python-float
@@ -113,6 +125,10 @@ class Mega2Tables(NamedTuple):
     n_noise: int
     cull_pairs: bool        # sphere and loose-quad chunks are culled
     cull_boxes: bool        # box-slab chunks are culled
+    tree: torch.Tensor      # [2 * max(tree_n, 1), 8] f32 sphere tree nodes
+                            # (heap order from 1; row 0 unused)
+    tree_p0: int            # sphere rows tested before the tree's
+    tree_n: int             # the tree's leaves; 0: no tree
 
     @property
     def np_rows(self) -> int:
@@ -192,13 +208,59 @@ def _morton(p: np.ndarray) -> np.ndarray:
 
 def _sphere_order(c0, dc, rad):
     """Oversized spheres first (they are hit by most rays, which tightens
-    the running best early), then Morton order."""
+    the running best early), then Morton order: (order, oversized count)."""
     n = c0.shape[0]
     if n == 0:
-        return np.zeros(0, np.int64)
+        return np.zeros(0, np.int64), 0
     med = np.median(rad) if n > 4 else 0.0
     big = rad > max(10.0 * med, 1e-9)
-    return np.lexsort((_morton(c0 + 0.5 * dc), ~big))
+    return np.lexsort((_morton(c0 + 0.5 * dc), ~big)), int(big.sum())
+
+
+def sphere_tree(sph: np.ndarray, p0: int, ns: int, leaf: int = TREE_LEAF):
+    """The tree K1 walks over sphere rows [p0, ns) of the packed rows
+    ``sph`` (f64): (nodes [2n, 8] f32, n leaves), (zeros [2, 8], 0) when the
+    range is empty.
+
+    Leaf k holds ``leaf`` consecutive rows from ``p0 + k * leaf`` (fewer in
+    the last), so the packer's Morton order groups near spheres.  The n
+    leaves are the leaves of the complete binary tree in heap order (root
+    1, children 2i and 2i + 1, internal nodes 1 .. n-1, leaves n .. 2n-1),
+    leaf k at the k-th leaf from the left, so every node holds a run of
+    rows.  A node's box holds its spheres swept over their motion
+    (c0 .. c0 + dc, as the chunk boxes), grown by 2^-16 of its largest
+    coordinate and rounded outward to f32: a margin far above the rounding
+    of the kernel's f32 slab test."""
+    if ns <= p0:
+        return np.zeros((2, TREE_COLS), np.float32), 0
+    rows = ns - p0
+    n = -(-rows // leaf)
+    r = sph[p0:ns]
+    c1 = r[:, 0:3] + r[:, 3:6]
+    # boxes as (lo, -hi), so that a union is one minimum
+    b = np.empty((n * leaf, 6))
+    b[:rows, 0:3] = np.minimum(r[:, 0:3], c1) - r[:, 8:9]
+    b[:rows, 3:6] = -(np.maximum(r[:, 0:3], c1) + r[:, 8:9])
+    b[rows:] = b[rows - 1]                    # the last leaf's missing rows
+    m = n.bit_length() - 1                    # 2^m <= n < 2^(m+1)
+    k = np.arange(n)
+    deep = 2 * (n - (1 << m))                 # leaves one level deeper
+    heap = np.where(k < deep, (1 << (m + 1)) + k, n + k - deep)
+    box = np.zeros((2 * n, 6))
+    box[heap] = b.reshape(n, leaf, 6).min(1)
+    for lev in range(m, -1, -1):              # internal nodes, deepest first
+        i0, i1 = 1 << lev, min(2 << lev, n)
+        box[i0:i1] = np.minimum(box[2 * i0:2 * i1:2],
+                                box[2 * i0 + 1:2 * i1:2])
+    grow = 2.0 ** -16 * np.abs(box).max(1, keepdims=True)
+    out = np.nextafter((box - grow).astype(np.float32),
+                       np.float32(-np.inf))
+    nodes = np.zeros((2 * n, TREE_COLS), np.float32)
+    nodes[1:, 0:3] = out[1:, 0:3]
+    nodes[1:, 3:6] = -out[1:, 3:6]
+    nodes[heap, 6] = p0 + k * leaf
+    nodes[heap, 7] = np.minimum(leaf, rows - k * leaf)
+    return nodes, n
 
 
 def _detect_boxes(qact_idx, q_all, u_all, v_all):
@@ -299,7 +361,10 @@ def pack_mega2_tables(scene: SceneArrays, meta: SceneMeta, device, *,
     over their corners, box slabs over their boxes; an empty chunk a point
     at 1e30), and the JAX package's rule decides which chunks the closest
     hit culls; ``dense_max`` and ``cull_min_chunks`` move its thresholds
-    (``dense_max=0, cull_min_chunks=0`` culls every chunk of any world)."""
+    (``dense_max=0, cull_min_chunks=0`` culls every chunk of any world).
+    An unculled world of TREE_MIN_CHUNKS sphere chunks or more gets the
+    tree K1 walks for its closest sphere (`sphere_tree`) over its spheres
+    but the oversized ones, which K1 tests first."""
     with tracing.span("pack"):
         return _pack_tables(scene, meta, device, dense_max, cull_min_chunks)
 
@@ -314,8 +379,9 @@ def _pack_tables(scene: SceneArrays, meta: SceneMeta, device,
     dc_all = np.asarray(scene.sph_dc, np.float64)
     rad_all = np.asarray(scene.sph_rad, np.float64)
     act_idx = np.nonzero(np.asarray(scene.sph_active))[0]
-    sorder = act_idx[_sphere_order(c0_all[act_idx], dc_all[act_idx],
-                                   rad_all[act_idx])]
+    order, n_big = _sphere_order(c0_all[act_idx], dc_all[act_idx],
+                                 rad_all[act_idx])
+    sorder = act_idx[order]
     ns = len(sorder)
     S_pad = max(-(-ns // CULL_C) * CULL_C, CULL_C)
     sph = np.zeros((S_pad, SPH_COLS), np.float64)
@@ -415,6 +481,14 @@ def _pack_tables(scene: SceneArrays, meta: SceneMeta, device,
     cull_pairs = many and S_pad + nl_c * CULL_C > dense_max
     cull_boxes = many and b_c > 0
 
+    # the sphere tree of an unculled world with several sphere chunks; the
+    # oversized spheres (the ground) stay out of it and are tested first
+    if cull_pairs or cull_boxes or n_s_chunks < TREE_MIN_CHUNKS:
+        tree, tree_n = np.zeros((2, TREE_COLS), np.float32), 0
+    else:
+        tree, tree_n = sphere_tree(sph, n_big, ns)
+    tracing.count("k1_tree_nodes", 2 * tree_n - 1 if tree_n else 0)
+
     # ---- winner attributes, row-major
     use_quads = meta.n_quads > 0
     NP = S_pad + (Q_pad if use_quads else 0)
@@ -466,7 +540,7 @@ def _pack_tables(scene: SceneArrays, meta: SceneMeta, device,
     host = dict(sph=f32(sph), quad=f32(quad), attr=f32(attr), med=f32(med),
                 perm=i32(perm), vec=f32(vec), texels=i32(texels),
                 img_dims=i32(img_dims), remap=i32(remap),
-                cull_s=f32(cull_s), cull_q=f32(cull_q))
+                cull_s=f32(cull_s), cull_q=f32(cull_q), tree=tree)
     with tracing.span("pack.upload"):
         tabs = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
     tracing.count("upload_bytes", sum(v.nbytes for v in host.values()))
@@ -474,7 +548,8 @@ def _pack_tables(scene: SceneArrays, meta: SceneMeta, device,
         **tabs,
         s_pad=S_pad, nl_pad=nl_pad, q_pad=Q_pad, b_pad=B_pad,
         n_media=meta.n_media, n_noise=max(meta.n_noise, 1),
-        cull_pairs=bool(cull_pairs), cull_boxes=bool(cull_boxes))
+        cull_pairs=bool(cull_pairs), cull_boxes=bool(cull_boxes),
+        tree_p0=n_big, tree_n=tree_n)
 
 
 # --------------------------------------------------------------------------
@@ -1047,6 +1122,8 @@ class _Params(ctypes.Structure):
         ("cull_s", ctypes.c_void_p), ("cull_q", ctypes.c_void_p),
         ("cull_pairs", ctypes.c_int), ("cull_boxes", ctypes.c_int),
         ("samp0", ctypes.c_int),
+        ("tree", ctypes.c_void_p), ("tree_p0", ctypes.c_int),
+        ("tree_n", ctypes.c_int),
     ]
 
 
@@ -1073,7 +1150,8 @@ def render_radiance_cuda(tab: Mega2Tables, pix: torch.Tensor,
     [P] on a CUDA device.  Launches on the current stream and does not
     synchronise; ``render_radiance_cuda.shape`` holds the last launch's
     (blocks, threads a block, shared bytes: 0 when the pair rows stay in
-    global memory)."""
+    global memory), ``.tree_launches`` counts the launches whose closest
+    sphere walked the tables' sphere tree."""
     dev = pix.device
     if dev.type != "cuda":
         raise ValueError(f"render_radiance_cuda needs CUDA tensors, got {dev}")
@@ -1096,10 +1174,14 @@ def render_radiance_cuda(tab: Mega2Tables, pix: torch.Tensor,
                            f"{err}")
     render_radiance_cuda.launches += 1
     render_radiance_cuda.shape = tuple(shape)
+    if tab.tree_n:
+        render_radiance_cuda.tree_launches += 1
+        tracing.count("k1_tree_launches", 1)
     return out
 
 
 render_radiance_cuda.launches = 0
+render_radiance_cuda.tree_launches = 0
 render_radiance_cuda.shape = None
 
 
@@ -1181,21 +1263,24 @@ def _params(tab: Mega2Tables, fp: FrameParams) -> _Params:
         seed=fp.seed & 0xFFFFFFFF,
         cull_s=tab.cull_s.data_ptr(), cull_q=tab.cull_q.data_ptr(),
         cull_pairs=int(tab.cull_pairs), cull_boxes=int(tab.cull_boxes),
-        samp0=fp.samp0)
+        samp0=fp.samp0, tree=tab.tree.data_ptr(), tree_p0=tab.tree_p0,
+        tree_n=tab.tree_n)
 
 
 def _check_tables(tab: Mega2Tables, dev) -> None:
     for name in ("sph", "quad", "attr", "med", "perm", "vec", "texels",
-                 "img_dims", "cull_s", "cull_q"):
+                 "img_dims", "cull_s", "cull_q", "tree"):
         t = getattr(tab, name)
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"table {name} must be contiguous on {dev}")
-    for name in ("sph", "quad", "attr", "med", "vec", "cull_s", "cull_q"):
+    for name in ("sph", "quad", "attr", "med", "vec", "cull_s", "cull_q",
+                 "tree"):
         if getattr(tab, name).dtype != torch.float32:
             raise ValueError(f"table {name} must be float32")
-    if tab.sph.data_ptr() % 16 or tab.quad.data_ptr() % 16:
-        raise ValueError("tables sph and quad must be 16-byte aligned (K1 "
-                         "and K2 copy their rows as float4)")
+    if tab.sph.data_ptr() % 16 or tab.quad.data_ptr() % 16 \
+            or tab.tree.data_ptr() % 16:
+        raise ValueError("tables sph, quad and tree must be 16-byte aligned "
+                         "(K1 and K2 read their rows as float4)")
 
 
 def load_trace_kernel():

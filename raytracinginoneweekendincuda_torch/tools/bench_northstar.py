@@ -7,7 +7,9 @@ K1): one warm-up frame, then the best of ``--repeats``, each ending in
 seconds and M primary rays/s beside the card's name and power limit, and
 K1's bound for the frame (`tools/lane_share.k1_bound`): its lane-bounces
 counted from K2's tapes of every pixel at the first `BOUND_SPP` (10)
-samples and scaled to the frame's spp, over the H100's FP32
+samples and scaled to the frame's spp, each testing the node boxes and
+spheres of K1's sphere-tree walk (`tools/tree_walk.walk_tests`, on the
+CPU, every `WALK_STRIDE`-th pixel at 2 samples), over the H100's FP32
 and memory rates.  Then one JSON line.  Needs a CUDA device.
 
     python -m raytracinginoneweekendincuda_torch.tools.bench_northstar \
@@ -30,9 +32,11 @@ from ..scene.compiler import compile_scene
 from ..utils.benchmark import BASELINE_RAYS_PER_S, device_line
 from ..utils.config import RenderConfig
 from .lane_share import k1_bound, path_counts
+from .tree_walk import walk_tests
 
 NORTH_STAR = (1200, 675, 500)   # width, height, spp (BASELINE.json)
 BOUND_SPP = 10
+WALK_STRIDE = 211
 
 
 def north_star(device="cuda", *, spp: int = NORTH_STAR[2],
@@ -72,7 +76,14 @@ def north_star(device="cuda", *, spp: int = NORTH_STAR[2],
     pix = torch.arange(width * height, dtype=torch.int32, device=dev)
     sub_lb = int(path_counts(tab, fp, pix).sum())
     lane_bounces = sub_lb * spp / n_sub
-    b_ms, b_by = k1_bound(tab, width * height, lane_bounces)
+    walk = None
+    if tab.tree_n:
+        w = walk_tests(mega2.pack_mega2_tables(scene, meta, "cpu"),
+                       fp._replace(spp=min(2, spp)),
+                       torch.arange(0, width * height, WALK_STRIDE,
+                                    dtype=torch.int32))
+        walk = (w["box_tests"], w["sphere_tests"])
+    b_ms, b_by = k1_bound(tab, width * height, lane_bounces, walk)
     rec = {
         "metric": f"primary rays/s, book1_final {width}x{height}@{spp}spp "
                   f"(mega2, render())",
@@ -81,6 +92,7 @@ def north_star(device="cuda", *, spp: int = NORTH_STAR[2],
         "seconds": best, "repeats": repeats, "first_seconds": first,
         "lane_bounces": lane_bounces,
         "lane_bounces_counted_at_spp": n_sub,
+        "walk_tests_per_lane_bounce": walk,
         "bound_ms": b_ms, "bound_by": b_by,
         "bound_share": b_ms / (best * 1e3),
         "device": str(dev), "card": card,

@@ -1,8 +1,9 @@
 """How much of K1's lane time does useful work, from winner tapes.
 
-Every K1 lane-bounce tests every sphere, loose quad and box row whether it
-hits or not, so a lane-bounce costs about the same on every lane and a
-warp takes as many iterations as its busiest lane.  ``path_bounces``
+A K2 lane-bounce (and a K1 one where the world has no sphere tree) tests
+every sphere, loose quad and box row whether it hits or not, so a
+lane-bounce costs about the same on every lane and a warp takes as many
+iterations as its busiest lane.  ``path_bounces``
 counts the bounces each (pixel, sample) path ran from its winner tape
 (``ops/mega2.trace_tapes``); ``lane_shares`` turns those counts into the
 share of lane slots that do useful work under two loop shapes, a warp
@@ -18,7 +19,9 @@ share is close to 1 on any frame that fills the card several times.
 
 The same counts give K1's bound for a frame (`k1_bound`): its
 lane-bounces (`path_counts`, from K2's tapes of the frame's lanes) times
-the FP32 operations a lane-bounce does over the scene's rows.
+the FP32 operations a lane-bounce does over the scene's rows; in a world
+with a sphere tree, over the node boxes and spheres its walk tests
+(`tools/tree_walk.walk_tests`) in place of every sphere row.
 
 K2's tapes are sample-major (``ops/mega2.tape_lanes``: lane ``s*P + p``),
 so one thread a lane -- K2 without a lane queue -- keeps the ``nested``
@@ -57,6 +60,7 @@ TAPE_CHUNK = 1440 * 72    # pixels a K2 trace when counting a frame's paths
 # 36, a medium 40, and the rest of a bounce (record, emission, scatter,
 # RNG) 100.
 OPS_SPHERE, OPS_QUAD, OPS_BOX, OPS_MEDIUM, OPS_BOUNCE = 26, 16, 36, 40, 100
+OPS_NODE = 28       # the slab test of a sphere-tree node's box
 
 
 def path_bounces(tape: torch.Tensor, attr: torch.Tensor,
@@ -135,12 +139,18 @@ def path_counts(tab, fp, pix: torch.Tensor,
     return counts
 
 
-def k1_bound(tab, n_ids: int, lane_bounces: float):
+def k1_bound(tab, n_ids: int, lane_bounces: float, walk=None):
     """(bound_ms, bound_by) of a K1 launch over ``n_ids`` pixel ids that
     runs ``lane_bounces`` lane-bounces: the tables and ids read, the sums
-    written, each lane-bounce's tests of every row."""
-    return bound(table_bytes(tab) + n_ids * (4 + 12),
-                 lane_bounces * pair_ops(tab))
+    written, each lane-bounce's tests of every row.  ``walk`` (box tests,
+    sphere tests) a lane-bounce of the sphere tree's walk replaces the
+    tests of every sphere row (a world whose tables have a tree)."""
+    ops = pair_ops(tab)
+    if walk is not None:
+        ops += walk[0] * OPS_NODE + (walk[1] - int(
+            (tab.sph[:, 9] > 0.5).sum())) * OPS_SPHERE
+    return bound(table_bytes(tab) + nbytes(tab.tree) + n_ids * (4 + 12),
+                 lane_bounces * ops)
 
 
 def main(argv=None) -> dict:

@@ -124,6 +124,47 @@ def test_k1_sums_equal_plain_with_lane_refill(dev):
     assert blocks * threads < pix.shape[0]
 
 
+def _world_case(world, dev, W=64, H=32, spp=4):
+    desc = scenes.book1_final() if world == "book1_final" else \
+        scenes.sphere_field(40) if world == "field40" else \
+        scenes.build_scene(int(world))
+    scene, meta = compile_scene(desc, W, H, dtype=np.float32)
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=spp)
+    return mega2.pack_mega2_tables(scene, meta, dev), \
+        mega2.frame_params(scene, cfg), \
+        torch.arange(W * H, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("world", ["0", "9", "book1_final"])
+def test_k1_tree_equals_every_row_on_card(world, dev):
+    """The worlds with a sphere tree: K1 walking it is array-equal to K1
+    testing every row (the tables without the tree) and to the plain
+    version; its nodes go to shared memory with the rows."""
+    tab, fp, pix = _world_case(world, dev)
+    assert tab.tree_n > 0
+    _assert_k1_equals_plain(tab, fp, pix)
+    assert mega2.render_radiance_cuda.shape[2] == (
+        tab.s_pad + tab.nl_pad + tab.b_pad) * 64 + 2 * tab.tree_n * 32
+    np.testing.assert_array_equal(
+        mega2.render_radiance_cuda(tab, pix, fp).cpu().numpy(),
+        mega2.render_radiance_cuda(tab._replace(tree_n=0), pix,
+                                   fp).cpu().numpy())
+
+
+@pytest.mark.parametrize("world,walks", [("book1_final", True),
+                                         ("0", True), ("field40", False)])
+def test_k1_tree_launches_count_the_walks(world, walks, dev):
+    """``tree_launches`` moves with each launch that walks the tree
+    (book1_final, scene 0) and not for a world of one sphere chunk."""
+    tab, fp, pix = _world_case(world, dev, 16, 8, 1)
+    before = (mega2.render_radiance_cuda.launches,
+              mega2.render_radiance_cuda.tree_launches)
+    mega2.render_radiance_cuda(tab, pix, fp)
+    torch.cuda.synchronize()
+    assert mega2.render_radiance_cuda.launches == before[0] + 1
+    assert mega2.render_radiance_cuda.tree_launches == before[1] + walks
+
+
 def test_k1_large_world_equals_plain(dev):
     """The large world (``sphere_field``: 10,000 spheres, 643 KB of sphere
     rows) exceeds a block's shared memory: K1 reads its rows from global

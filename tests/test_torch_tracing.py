@@ -69,9 +69,13 @@ def test_each_span_once_nested_and_no_user_annotation(frames):
 
 
 def test_upload_bytes_are_the_tables_bytes(frames):
+    """The packer's counters: the bytes of its tables (the sphere tree's
+    among them) and the tree's nodes."""
     tab = mega2.pack_mega2_tables(frames["scene"], frames["meta"], "cpu")
     nbytes = sum(t.nbytes for t in tab if isinstance(t, torch.Tensor))
-    assert frames["counted"] == {"upload_bytes": nbytes}
+    assert tab.tree_n > 0
+    assert frames["counted"] == {"upload_bytes": nbytes,
+                                 "k1_tree_nodes": 2 * tab.tree_n - 1}
 
 
 def test_without_a_profiler_nothing_counted_and_the_frame_equal(frames):

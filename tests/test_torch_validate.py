@@ -198,6 +198,8 @@ def test_north_star_counts_and_bound_on_cpu():
     rec = bench_northstar.north_star("cpu", spp=4, repeats=1, bound_spp=2,
                                      width=32, height=18)
     assert rec["lane_bounces_counted_at_spp"] == 2
+    boxes, spheres = rec["walk_tests_per_lane_bounce"]   # the sphere tree's
+    assert 0 < boxes and 1 <= spheres < 484
     assert rec["lane_bounces"] >= 32 * 18 * 4     # a bounce a path at least
     assert rec["bound_ms"] > 0 and rec["bound_by"] in ("bytes",
                                                        "operations")
