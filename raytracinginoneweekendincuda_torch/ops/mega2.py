@@ -311,6 +311,14 @@ def _pack_textures(scene: SceneArrays, meta: SceneMeta):
     rows of (r<<16)|(g<<8)|b, stacked; img_dims rows (iw, ih, row offset).
     A scene whose image textures have no image data (the file could not be
     decoded) gets one empty plane; its texture reads debug cyan."""
+    with tracing.span("pack.textures"):
+        tables = _texture_tables(scene, meta)
+    # perm, vec and texels as uploaded: 4-byte elements
+    tracing.count("texture_bytes", sum(t.size * 4 for t in tables[:3]))
+    return tables
+
+
+def _texture_tables(scene: SceneArrays, meta: SceneMeta):
     n_noise = max(meta.n_noise, 1) if meta.has_noise else 1
     perm = np.zeros((8 * n_noise, 256), np.int32)
     vec = np.zeros((24 * n_noise, 256), np.float64)
@@ -488,6 +496,13 @@ def _pack_tables(scene: SceneArrays, meta: SceneMeta, device,
     else:
         tree, tree_n = sphere_tree(sph, n_big, ns)
     tracing.count("k1_tree_nodes", 2 * tree_n - 1 if tree_n else 0)
+    # the rows K1's loops run over outside the tree on every lane-bounce,
+    # padded as K1 runs them: the sphere rows before the tree (every sphere
+    # row where there is none), the loose-quad and box-slab rows, the media
+    tracing.count("k1_tree_prefix_rows", n_big if tree_n else S_pad)
+    tracing.count("k1_loose_quad_rows", nl_pad)
+    tracing.count("k1_slab_rows", B_pad)
+    tracing.count("k1_media", meta.n_media)
 
     # ---- winner attributes, row-major
     use_quads = meta.n_quads > 0

@@ -7,14 +7,15 @@ writes a ``torch.profiler`` Chrome trace of the render (host and, on the
 card, device activity) into DIR, where the JAX CLI writes a
 ``jax.profiler`` trace, and then prints the port's counters
 (`utils/tracing.py`: ``upload_bytes``, the bytes of the tables' copies to
-the device).  Beside torch's own events the trace holds the port's host
-spans: ``rt.render`` (the frame), and inside it, on engine ``mega2``,
-``rt.pack`` (the host packer) with ``rt.pack.upload`` (the tables'
-copies), ``rt.params``, ``rt.k1.enqueue`` (K1's pixel ids, queue and
-launch), and on every engine but the chunked ones ``rt.finalize``
+the device, and the others listed there).  Beside torch's own events the
+trace holds the port's host spans: ``rt.render`` (the frame), and inside
+it, on engine ``mega2``, ``rt.pack`` (the host packer) with
+``rt.pack.textures`` (the texture tables) and ``rt.pack.upload`` (the
+tables' copies), ``rt.params``, ``rt.k1.enqueue`` (K1's pixel ids, queue
+and launch), and on every engine but the chunked ones ``rt.finalize``
 (the epilogue) and ``rt.readback`` (the frame's copy to the host); a
-sharded render records only ``rt.pack``, ``rt.pack.upload`` and
-``rt.finalize``.  ``--device cuda`` (the default)
+sharded render records only ``rt.pack``, ``rt.pack.textures``,
+``rt.pack.upload`` and ``rt.finalize``.  ``--device cuda`` (the default)
 renders on the card -- the engines' CUDA kernels (K1 for ``mega2``, K5 for ``mega``,
 K6 for ``wavefront_pallas``) and plain PyTorch around them and for the
 other engines (``wavefront``, ``bruteforce`` and the BVH engines ``bvh``

@@ -21,11 +21,19 @@ else; ``counters()`` gives a copy, ``reset()`` clears them.
 
 Spans on the render path (``ops/render.py``, ``ops/mega2.py``):
 ``rt.render`` (all of ``render()``), ``rt.pack`` (``pack_mega2_tables``)
-and within it ``rt.pack.upload`` (the tables' host-to-device copies),
-``rt.params`` (``frame_params``), ``rt.k1.enqueue`` (``render_mega2``:
-pixel ids, queue, launch), ``rt.finalize`` and ``rt.readback`` (the
-frame's copy to the host and its flip).  Counter: ``upload_bytes`` (the
-bytes of the packer's table copies).
+and within it ``rt.pack.textures`` (the Perlin and texel tables) and
+``rt.pack.upload`` (the tables' host-to-device copies), ``rt.params``
+(``frame_params``), ``rt.k1.enqueue`` (``render_mega2``: pixel ids,
+queue, launch), ``rt.finalize`` and ``rt.readback`` (the frame's copy to
+the host and its flip).  Counters, each added once a pack or a launch:
+``upload_bytes`` (the bytes of the packer's table copies),
+``texture_bytes`` (of them, the Perlin and texel tables'),
+``k1_tree_nodes`` (the sphere tree's nodes), the rows K1 runs outside the
+sphere tree on every lane-bounce, padded as it runs them:
+``k1_tree_prefix_rows`` (sphere rows before the tree; every sphere row
+where there is no tree), ``k1_loose_quad_rows``, ``k1_slab_rows`` (box
+slabs) and ``k1_media``; and ``k1_tree_launches`` (K1 launches that
+walked the tree, ``render_radiance_cuda``).
 """
 
 from __future__ import annotations

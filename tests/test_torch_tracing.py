@@ -19,7 +19,8 @@ from torch_threads import one_torch_thread  # noqa: F401
 W, H = 32, 18
 # each span and the span it lies in
 PARENT = {"rt.render": None, "rt.pack": "rt.render",
-          "rt.pack.upload": "rt.pack", "rt.params": "rt.render",
+          "rt.pack.textures": "rt.pack", "rt.pack.upload": "rt.pack",
+          "rt.params": "rt.render",
           "rt.k1.enqueue": "rt.render", "rt.finalize": "rt.render",
           "rt.readback": "rt.render"}
 
@@ -70,12 +71,18 @@ def test_each_span_once_nested_and_no_user_annotation(frames):
 
 def test_upload_bytes_are_the_tables_bytes(frames):
     """The packer's counters: the bytes of its tables (the sphere tree's
-    among them) and the tree's nodes."""
+    among them), the tree's nodes, the rows K1 runs outside the tree (the
+    ground before it; scene 0 has no quads, boxes or media) and the bytes
+    of the texture tables."""
     tab = mega2.pack_mega2_tables(frames["scene"], frames["meta"], "cpu")
     nbytes = sum(t.nbytes for t in tab if isinstance(t, torch.Tensor))
-    assert tab.tree_n > 0
-    assert frames["counted"] == {"upload_bytes": nbytes,
-                                 "k1_tree_nodes": 2 * tab.tree_n - 1}
+    assert tab.tree_n > 0 and tab.tree_p0 == 1
+    assert frames["counted"] == {
+        "upload_bytes": nbytes, "k1_tree_nodes": 2 * tab.tree_n - 1,
+        "k1_tree_prefix_rows": 1, "k1_loose_quad_rows": 0,
+        "k1_slab_rows": 0, "k1_media": 0,
+        "texture_bytes": tab.perm.nbytes + tab.vec.nbytes
+        + tab.texels.nbytes}
 
 
 def test_without_a_profiler_nothing_counted_and_the_frame_equal(frames):
